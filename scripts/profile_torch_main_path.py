@@ -1,13 +1,18 @@
 """Where the device time of the port's main path goes, on one CUDA card.
 
-Run from the repository root:  python3 scripts/profile_torch_main_path.py
+Run from the repository root:
 
-Codes chip_smoke.py's window (LHBDC(N=128) seeded weights, 1088x1920,
-GOP-16, 2 GOPs, batch 4, bfloat16 policy) once to warm up, then encodes and
-decodes it again under torch.profiler. Prints JSON lines: the wall time of
+    python3 scripts/profile_torch_main_path.py [--family lhbdc|flowguided_b]
+
+Codes chip_smoke.py's window (1088x1920, GOP-16, 2 GOPs, bfloat16 policy,
+seeded weights) for one codec family: LHBDC(N=128) at batch 4 (the
+default), or FlowGuidedB at full width at batch 2 (chip_smoke.py's v4
+path). It codes the window once to warm up, then encodes and decodes it
+again under torch.profiler. Prints JSON lines: the wall time of
 each side, the summed device time of all kernels and its share of the wall
 time (the device's busy share; one stream, so kernels do not overlap), the
-device time by kernel family, and the 25 kernels with the most device time.
+device time by kernel family, and the 25 kernels with the most device time;
+every kernel's row goes to outputs/profile_<family>.json (ignored by git).
 """
 
 from __future__ import annotations
@@ -21,9 +26,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 FAMILIES = [  # first match wins
     ("warp kernel", ("warp_bilinear_nhwc",)),
+    ("deform kernel", ("deform_conv_nhwc",)),
     ("layout (NCHW<->NHWC)", ("nchwToNhwc", "nhwcToNchw", "permute")),
-    ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd", "fprop")),
-    ("matmul", ("gemm", "cutlass", "cublas")),
+    # cuDNN's FFT convolutions run as DSE::*fft* and region_transform kernels
+    ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd", "fprop",
+                     "fft", "region_transform")),
+    ("matmul", ("gemm", "cutlass", "cublas", "nvjet")),
     ("copy", ("memcpy", "memset", "copy", "cat")),
     ("gather / index", ("gather", "index", "searchsorted")),
 ]
@@ -38,20 +46,35 @@ def family(name: str) -> str:
 
 
 def main() -> int:
+    import argparse
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--family", choices=("lhbdc", "flowguided_b"), default="lhbdc")
+    codec = parser.parse_args().family
     sys.path.insert(0, ROOT)
     import chip_smoke
     from tpuvc_torch.coder import parallel
-    from tpuvc_torch.models.lhbdc import LHBDC, LHBDCCoder
     from tpuvc_torch.ops.precision import policy_from_name
 
-    coder = LHBDCCoder(LHBDC(N=128, generator=torch.Generator().manual_seed(0)))
-    code_window, decode_window, _, n_real = chip_smoke.bench_window(torch, coder)
+    if codec == "lhbdc":
+        from tpuvc_torch.models.lhbdc import LHBDC, LHBDCCoder
+
+        coder = LHBDCCoder(LHBDC(N=128, generator=torch.Generator().manual_seed(0)))
+        batch = 4
+    else:
+        from tpuvc_torch.models.flowguided_b import FlowGuidedBCoder
+
+        coder = FlowGuidedBCoder(chip_smoke.v4_model(torch))
+        batch = 2
+    code_window, decode_window, _, n_real = chip_smoke.bench_window(
+        torch, coder, B=batch, family=codec
+    )
     smi = chip_smoke.nvidia_smi()
     try:
         with policy_from_name("bfloat16"):
@@ -84,19 +107,25 @@ def main() -> int:
         fams[family(e.key)] = fams.get(family(e.key), 0.0) + dev_us(e) / 1e3
     wall_ms = 1e3 * (t_enc + t_dec)
     print(json.dumps({
-        "card": smi, "b_frames": n_real, "encode_wall_ms": 1e3 * t_enc,
+        "card": smi, "codec": codec, "batch": batch, "b_frames": n_real,
+        "encode_wall_ms": 1e3 * t_enc,
         "decode_wall_ms": 1e3 * t_dec, "device_kernel_ms": total_ms,
         "device_busy_share": total_ms / wall_ms,
         "note": "profiled run; the profiler adds host overhead",
     }), flush=True)
     print(json.dumps({"device_ms_by_family": dict(
         sorted(fams.items(), key=lambda kv: -kv[1]))}), flush=True)
-    top = sorted(kernels, key=dev_us, reverse=True)[:25]
-    for e in top:
-        print(json.dumps({
-            "kernel": e.key[:120], "family": family(e.key), "calls": e.count,
-            "device_ms": dev_us(e) / 1e3,
-        }), flush=True)
+    rows = [
+        {"kernel": e.key, "family": family(e.key), "calls": e.count,
+         "device_ms": dev_us(e) / 1e3}
+        for e in sorted(kernels, key=dev_us, reverse=True)
+    ]
+    for r in rows[:25]:
+        print(json.dumps({**r, "kernel": r["kernel"][:120]}), flush=True)
+    out_dir = os.path.join(ROOT, "outputs")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"profile_{codec}.json"), "w") as f:
+        json.dump({"card": smi, "kernels": rows}, f, indent=1)
     return 0
 
 

@@ -1,6 +1,7 @@
-"""tpuvc_torch on a CUDA card: the hand-written warp kernel against its plain
-PyTorch version, and a small main-path run on the card against the same run
-on the CPU.
+"""tpuvc_torch on a CUDA card: the hand-written warp and deform kernels
+against their plain PyTorch versions, and small runs of the LHBDC and
+FlowGuidedB paths on the card against the same runs on the CPU and through
+their own decoders.
 
 Marked ``gpu``; each test skips without a card. The card's machine has no
 JAX, so this file imports none and runs as
@@ -133,3 +134,130 @@ def test_level_batch_round_trip_on_card(cuda, dtype):
     # One warp per SPyNet pyramid level (2 at 64x64) and 2 compensation
     # warps: the encoder runs SPyNet twice, the decoder once.
     assert warp_kernel.launches == (2 * 2 + 2) + (2 + 2)
+
+
+def _deform_inputs(B, H, W, G, Cg, Og, spread, seed=0):
+    rng = np.random.default_rng(seed)
+    T = 9
+    x = rng.standard_normal((B, H, W, G * Cg)).astype(np.float32)
+    off = (spread * rng.standard_normal((B, H, W, G * T * 2))).astype(np.float32)
+    masks = rng.random((B, H, W, G * T), dtype=np.float32)
+    weight = (rng.standard_normal((G * Og, Cg, 3, 3)) / np.sqrt(T * Cg)).astype(np.float32)
+    bias = rng.standard_normal(G * Og).astype(np.float32)
+    return [torch.from_numpy(a) for a in (x, off, masks, weight, bias)]
+
+
+# (B, H, W, G, Cg, Og, offset spread in px): the v4 path's group widths, one
+# shape with Og > 8 (outputs in several register chunks), and one whose
+# group weights exceed shared memory (read from device memory).
+DEFORM_CASES = [
+    (2, 24, 40, 16, 8, 4, 3.0),
+    (1, 17, 29, 16, 12, 6, 20.0),
+    (1, 9, 13, 2, 5, 11, 1.5),
+    (1, 6, 7, 1, 64, 128, 2.0),
+]
+
+
+@pytest.mark.parametrize("case", DEFORM_CASES)
+def test_deform_kernel_matches_plain(cuda, case):
+    """Taps summed outer and channels inner in both; the plain version's
+    per-tap channel contraction sums in cuBLAS's order: bar 2e-5 on O(1)
+    outputs."""
+    from tpuvc_torch.ops.deform import deform_conv2d, deform_kernel, deform_plain
+
+    B, H, W, G, Cg, Og, spread = case
+    x, off, masks, weight, bias = (t.to(cuda) for t in _deform_inputs(B, H, W, G, Cg, Og, spread))
+    before = deform_kernel.launches
+    out = deform_conv2d(x, off, masks, weight, bias, G)
+    assert deform_kernel.launches == before + 1
+    ref = deform_plain(x, off, masks, weight, bias, G)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 2e-5
+    # deterministic: the same launch gives the same bits
+    assert torch.equal(deform_kernel(x, off, masks, weight, bias, G), out)
+
+
+def test_deform_kernel_without_masks_or_bias(cuda):
+    from tpuvc_torch.ops.deform import deform_conv2d, deform_plain
+
+    x, off, _, weight, _ = (t.to(cuda) for t in _deform_inputs(1, 12, 20, 4, 3, 2, 2.0))
+    out = deform_conv2d(x, off, None, weight, None, 4)
+    ref = deform_plain(x, off, None, weight, None, 4)
+    assert float((out - ref).abs().max()) <= 2e-5
+
+
+def test_deform_kernel_rejects_what_it_does_not_take(cuda):
+    from tpuvc_torch.ops.deform import deform_kernel
+
+    x, off, masks, weight, bias = (t.to(cuda) for t in _deform_inputs(1, 8, 8, 2, 2, 2, 1.0))
+    with pytest.raises(ValueError):
+        deform_kernel(x.double(), off, masks, weight, bias, 2)
+    with pytest.raises(ValueError):
+        deform_kernel(x, off[..., :-2], masks, weight, bias, 2)
+    with pytest.raises(ValueError):
+        deform_kernel(x, off, masks, weight, bias[:-1], 2)
+    with pytest.raises(ValueError):
+        deform_kernel(x.cpu(), off.cpu(), masks.cpu(), weight.cpu(), bias.cpu(), 2)
+
+
+def test_deform_backward_matches_plain(cuda):
+    from tpuvc_torch.ops.deform import deform_conv2d, deform_plain
+
+    ins = [t.to(cuda) for t in _deform_inputs(1, 10, 14, 2, 3, 2, 2.0, seed=1)]
+    g = torch.rand((1, 10, 14, 4), device=cuda)
+    grads = []
+    for fn in (deform_conv2d, deform_plain):
+        ts = [t.clone().requires_grad_() for t in ins]
+        (fn(*ts, 2) * g).sum().backward()
+        grads.append([t.grad for t in ts])
+    for a, b in zip(*grads):
+        assert torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _v4_model():
+    import chip_smoke
+
+    return chip_smoke.v4_model(torch, N=32, seed=0, feature_channels=(16, 32, 48),
+                               levels=3, groups=(4, 4, 8, 16))
+
+
+def test_flowguided_forward_card_matches_cpu(cuda):
+    """float32 with TF32 off: the card's forward (warp and deform kernels,
+    cuDNN) agrees with the CPU's (plain versions) within summation-order
+    noise."""
+    model = _v4_model().eval()
+    x1, xc, x2 = _frames((2, 64, 64, 3))
+    with torch.no_grad():
+        ref = model(x1, x2, xc, 1.0, 0.5, 0.5, 1, "dequantize")
+        model.to(cuda)
+        out = model(x1.to(cuda), x2.to(cuda), xc.to(cuda), 1.0, 0.5, 0.5, 1, "dequantize")
+    scale = max(1.0, float(ref["x_hat"].abs().max()))
+    assert float((out["x_hat"].cpu() - ref["x_hat"]).abs().max()) <= 1e-4 * scale
+    assert abs(float(out["size"]) / float(ref["size"]) - 1.0) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flowguided_round_trip_on_card(cuda, dtype):
+    """The v4 path at a small size on the card: level-batched encode, then
+    decode, bit-exact, through both kernels."""
+    from tpuvc_torch.coder import parallel
+    from tpuvc_torch.coder.container import VFrameBitstream
+    from tpuvc_torch.models.flowguided_b import FlowGuidedBCoder
+    from tpuvc_torch.ops.deform import deform_kernel
+    from tpuvc_torch.ops.precision import policy_from_name
+    from tpuvc_torch.ops.warp import warp_kernel
+
+    coder = FlowGuidedBCoder(_v4_model())
+    x1, xc, x2 = (t.to(cuda) for t in _frames((2, 64, 64, 3)))
+    warp_kernel.launches = deform_kernel.launches = 0
+    try:
+        with policy_from_name(dtype):
+            bits, x_hat = coder.encode_level_batch(x1, x2, xc, 1.0, 0.5, 0.5)
+            parsed = [VFrameBitstream.deserialize(b.serialize()) for b in bits]
+            dec = coder.decode_level_batch(x1, x2, parsed)
+    finally:
+        parallel.shutdown()
+    assert torch.equal(dec, x_hat)
+    # 2 feature warps and 1 deform conv per pyramid level, on each side.
+    assert warp_kernel.launches == 2 * 6
+    assert deform_kernel.launches == 2 * 3

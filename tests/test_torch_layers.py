@@ -16,8 +16,10 @@ import torch
 from flax import serialization
 
 from tpuvc.models import layers as jl
+from tpuvc.ops import checkerboard as jck
 from tpuvc.ops.precision import mixed_precision as j_mixed
 from tpuvc_torch.models import layers as tl
+from tpuvc_torch.ops import checkerboard as tck
 from tpuvc_torch.ops.precision import mixed_precision as t_mixed
 from tpuvc_torch.utils.checkpoint import load_checkpoint, unpackb
 from tpuvc_torch.utils.convert import params_from_jax
@@ -57,6 +59,10 @@ LAYERS = {
                          lambda: tl.ResidualBlockWithStride(4, 8), 4),
     "res_block_up": (lambda: jl.ResidualBlockUpsample(8),
                      lambda: tl.ResidualBlockUpsample(4, 8), 4),
+    "res_bottleneck": (lambda: jl.ResidualBottleneckBlock(8),
+                       lambda: tl.ResidualBottleneckBlock(8), 8),
+    "checkerboard_conv": (lambda: jck.CheckerboardConv(6, kernel=5),
+                          lambda: tck.CheckerboardConv(4, 6, kernel=5), 4),
 }
 
 
@@ -73,7 +79,8 @@ def test_layer_matches_tpuvc(name):
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["conv5", "gdn", "res_block_up"])
+@pytest.mark.parametrize("name", ["conv5", "gdn", "res_block_up", "res_bottleneck",
+                                  "checkerboard_conv"])
 def test_layer_bf16_policy_tracks_tpuvc(name):
     jmk, tmk, cin = LAYERS[name]
     jmod, tmod = jmk(), tmk()
@@ -141,3 +148,20 @@ def test_converter_maps_every_lhbdc_parameter():
     assert sorted(sd) == sorted(ref)
     for k, v in sd.items():
         assert tuple(v.shape) == tuple(ref[k].shape), k
+
+
+def test_converter_maps_every_flowguided_parameter():
+    """A converted FlowGuidedB-shaped flax tree (CondELIC's module lists,
+    gains, DeformConv weights) loads into the port with strict=True."""
+    from tpuvc.models.flowguided_b import FlowGuidedB as JF
+    from tpuvc_torch.models.flowguided_b import FlowGuidedB as TF
+
+    kw = dict(feature_channels=(16, 32, 48), N=16, M=16, levels=3, groups=(4, 4, 8))
+    x = jnp.zeros((1, 64, 64, 3))
+    shapes = jax.eval_shape(
+        lambda: JF(**kw).init(jax.random.key(0), x, x, x, 1, 0.5, -0.5, 1, "dequantize")
+    )
+    tree = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    model = TF(**kw)
+    model.load_state_dict(params_from_jax(tree), strict=True)
+    assert model.offset_diversity_l1.DeformConv_0.weight.shape == (16, 2, 3, 3)

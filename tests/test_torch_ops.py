@@ -1,5 +1,6 @@
 """tpuvc_torch.ops against tpuvc.ops on the CPU: padding, resampling, the
-compute-dtype policy, and the warp's plain version in all compat modes.
+compute-dtype policy, the checkerboard masks, and the warp's plain version
+in all compat modes.
 
 Inputs come from a numpy seed and go through both packages. Tolerances:
 layout ops and padding are exact; resampling is one small matrix product per
@@ -13,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from tpuvc.ops import checkerboard as jck
 from tpuvc.ops import pad as jpad
 from tpuvc.ops import resample as jres
 from tpuvc.ops.warp import warp as jwarp
 from tpuvc.ops.warp_pallas import _warp_xla
+from tpuvc_torch.ops import checkerboard as tck
 from tpuvc_torch.ops import pad as tpad
 from tpuvc_torch.ops import precision
 from tpuvc_torch.ops import resample as tres
@@ -29,7 +32,7 @@ def _rand(shape, seed=0, scale=1.0):
     return (scale * np.random.default_rng(seed).standard_normal(shape)).astype(np.float32)
 
 
-@pytest.mark.parametrize("mode", ["reflect", "edge"])
+@pytest.mark.parametrize("mode", ["reflect", "edge", "constant"])
 @pytest.mark.parametrize("hw", [(16, 16), (5, 13), (64, 64), (63, 2)])
 def test_pad_to_multiple_matches_tpuvc(mode, hw):
     x = _rand((2, *hw, 3))
@@ -40,6 +43,18 @@ def test_pad_to_multiple_matches_tpuvc(mode, hw):
     np.testing.assert_array_equal(
         tpad.unpad(out, size).numpy(), np.asarray(jpad.unpad(ref, size))
     )
+
+
+@pytest.mark.parametrize("hw", [(4, 4), (5, 7), (17, 30)])
+def test_checkerboard_masks_match_tpuvc(hw):
+    x = _rand((2, *hw, 3))
+    np.testing.assert_array_equal(tck.anchor_mask(*hw).numpy(), np.asarray(jck.anchor_mask(*hw)))
+    for name in ("keep_anchor", "keep_non_anchor"):
+        np.testing.assert_array_equal(
+            getattr(tck, name)(torch.from_numpy(x)).numpy(),
+            np.asarray(getattr(jck, name)(jnp.asarray(x))),
+        )
+    np.testing.assert_array_equal(tck.checkerboard_kernel_mask(5), jck.checkerboard_kernel_mask(5))
 
 
 def test_avg_pool_matches_tpuvc():

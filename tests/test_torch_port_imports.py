@@ -84,6 +84,27 @@ def test_warp_on_a_non_cpu_tensor_never_runs_the_plain_version():
         warp_kernel(torch.zeros((1, 8, 8, 3)), torch.zeros((1, 8, 8, 2)))
 
 
+def test_deform_on_a_non_cpu_tensor_never_runs_the_plain_version(monkeypatch):
+    """Only a CPU tensor takes deform_plain; any other device goes to the
+    kernel wrapper, which launches or raises (here: a meta tensor)."""
+    from tpuvc_torch.ops import deform
+
+    def plain(*args, **kwargs):
+        raise AssertionError("deform_plain ran on a non-CPU tensor")
+
+    monkeypatch.setattr(deform, "deform_plain", plain)
+    x = torch.empty((1, 8, 8, 4), device="meta")
+    off = torch.empty((1, 8, 8, 2 * 9 * 2), device="meta")
+    weight = torch.empty((6, 2, 3, 3), device="meta")
+    for masks in (None, torch.empty((1, 8, 8, 2 * 9), device="meta")):
+        with pytest.raises(ValueError, match="CUDA"):
+            deform.deform_conv2d(x, off, masks, weight, None, 2)
+    cpu = [torch.zeros(t.shape) for t in (x, off, weight)]
+    with pytest.raises(ValueError, match="CUDA"):
+        deform.deform_kernel(cpu[0], cpu[1], torch.zeros((1, 8, 8, 18)), cpu[2],
+                             torch.zeros(6), 2)
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")

@@ -1,0 +1,51 @@
+"""Seeded parameter trees for tests that hold tpuvc_torch against tpuvc.
+
+Initialising a large flax model runs every layer once, which costs minutes
+on a small host. ``filled_params`` takes the tree's shapes from
+``jax.eval_shape`` instead and fills every leaf from a numpy seed with
+values of the right scale: conv kernels lecun-like, biases small and
+nonzero, positive gains around 1, a factorized prior near its
+initialisation. Both packages then run on the same values
+(``params_from_jax`` carries them to the port), including heads that flax
+would start at zero.
+"""
+
+import jax
+import numpy as np
+
+
+def _leaf(name: str, shape, rng):
+    if name in ("kernel", "weight"):  # HWIO kernels (DeformConv's is "weight")
+        return rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+    if name.startswith("matrix_"):
+        return np.log(np.expm1(1.0 / 10 ** 0.2 / shape[1])) + 0.1 * rng.standard_normal(shape)
+    if name.startswith("factor_"):
+        return 0.1 * rng.standard_normal(shape)
+    if name == "quantiles":
+        return np.array([-10.0, 0.0, 10.0]) + 0.1 * rng.standard_normal(shape)
+    if name.endswith("Gain"):
+        return np.exp(0.2 * rng.standard_normal(shape))
+    if name.startswith("bias"):
+        return 0.02 * rng.standard_normal(shape)
+    raise KeyError(f"no seeded fill for parameter {name}")
+
+
+def filled_params(init_fn, seed: int = 0, scale: dict | None = None):
+    """Seeded numpy values for the tree ``init_fn()`` would return.
+
+    ``scale`` maps a '/'-joined path prefix to a factor for the kernels
+    under it (the flow and offset heads are kept small, as trained heads
+    are)."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(init_fn)
+
+    def fill(path, s):
+        keys = [p.key for p in path]
+        v = _leaf(keys[-1], s.shape, rng)
+        joined = "/".join(keys)
+        for prefix, f in (scale or {}).items():
+            if joined.startswith(prefix) and keys[-1] in ("kernel", "weight"):
+                v = v * f
+        return v.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)

@@ -1,7 +1,8 @@
-"""Binary container for a coded B-frame (the port's copy of tpuvc's
-``BFrameBitstream``; byte layout identical, so tpuvc parses port streams).
+"""Binary containers for coded B-frames (the port's copies of tpuvc's
+``BFrameBitstream`` and ``VFrameBitstream``; byte layouts identical, so
+tpuvc parses port streams).
 
-Layout-compatible with the reference's B-frame container
+``BFrameBitstream`` is layout-compatible with the reference's B-frame container
 (LHBDC encode_B/decode_B):
 
   uint32 rate_id (lambda for LHBDC)
@@ -18,7 +19,7 @@ All integers little-endian.
 from __future__ import annotations
 
 import struct
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass
@@ -75,4 +76,70 @@ class BFrameBitstream:
             mv_z=mv_z,
             res_y=res_y,
             res_z=res_z,
+        )
+
+
+@dataclass
+class VFrameBitstream:
+    """Coded frame of the v3/v4 multi-stream codecs.
+
+    Carries the side information the decoder cannot derive from the
+    references (rate level s in thousandths, the down_ratio, temporal scales
+    in hundredths, the latent z shape) and the ordered byte streams (z and
+    the per-group anchor/non-anchor strings of both conditional codecs).
+
+    Layout (little-endian):
+      uint32 s_milli | uint8 down_ratio | int16 scale1_centi |
+      int16 scale2_centi | uint16 zh | uint16 zw | uint16 n_streams |
+      uint32 lengths[n_streams] | stream bytes...
+    """
+
+    s_milli: int
+    down_ratio: int
+    scale1_centi: int
+    scale2_centi: int
+    z_shape: tuple[int, int]
+    streams: list = field(default_factory=list)
+
+    HEADER = "<IBhhHHH"
+
+    @property
+    def num_bytes(self) -> int:
+        return (
+            struct.calcsize(self.HEADER)
+            + 4 * len(self.streams)
+            + sum(len(s) for s in self.streams)
+        )
+
+    def serialize(self) -> bytes:
+        head = struct.pack(
+            self.HEADER,
+            self.s_milli,
+            self.down_ratio,
+            self.scale1_centi,
+            self.scale2_centi,
+            self.z_shape[0],
+            self.z_shape[1],
+            len(self.streams),
+        )
+        lens = struct.pack(f"<{len(self.streams)}I", *[len(s) for s in self.streams])
+        return head + lens + b"".join(self.streams)
+
+    @classmethod
+    def deserialize(cls, blob: bytes) -> "VFrameBitstream":
+        hsize = struct.calcsize(cls.HEADER)
+        s_milli, dr, s1, s2, zh, zw, n = struct.unpack(cls.HEADER, blob[:hsize])
+        lens = struct.unpack(f"<{n}I", blob[hsize : hsize + 4 * n])
+        off = hsize + 4 * n
+        streams = []
+        for length in lens:
+            streams.append(blob[off : off + length])
+            off += length
+        return cls(
+            s_milli=s_milli,
+            down_ratio=dr,
+            scale1_centi=s1,
+            scale2_centi=s2,
+            z_shape=(zh, zw),
+            streams=streams,
         )

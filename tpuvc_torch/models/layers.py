@@ -232,6 +232,22 @@ class ResidualBlockUpsample(nn.Module):
         return out + self.SubpelConv_1(x)
 
 
+class ResidualBottleneckBlock(nn.Module):
+    """ELIC building block: 1x1 -> relu -> 3x3 -> relu -> 1x1, + identity,
+    at full width throughout."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.Conv_0 = conv1x1(features, features)
+        self.Conv_1 = conv3x3(features, features)
+        self.Conv_2 = conv1x1(features, features)
+
+    def forward(self, x):
+        out = F.relu(self.Conv_0(x))
+        out = F.relu(self.Conv_1(out))
+        return self.Conv_2(out) + x
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every parameter of ``module`` from ``generator``, module by
     module in registration order."""

@@ -3,17 +3,21 @@
 The port names its submodules as tpuvc's flax modules are named, so a flax
 parameter path becomes a state-dict key by joining it with dots, except:
 
-- flax module lists ``g_a_layers_3`` are ``nn.ModuleList`` entries
+- flax module lists ``g_a_layers_3`` (and CondELIC's ``g_s3_blocks``,
+  ``prior_fusion_blocks``, ``entropy_parameters``, ``channel_context_models``
+  and ``context_prediction_models``) are ``nn.ModuleList`` entries
   ``g_a_layers.3`` here;
 - conv kernels are HWIO in flax and OIHW here (``kernel`` -> ``weight``);
+  a ``DeformConv``'s HWIO kernel is named ``weight`` in flax too;
   SPyNet's ``conv{i}_kernel``/``conv{i}_bias`` are ``conv{i}.weight/bias``;
 - a transposed conv's flax kernel (kH, kW, in, out) is the spatially
   flipped torch ``ConvTranspose2d`` weight (in, out, kH, kW), and tpuvc's
   ``Deconv`` keeps it in a ``ConvTranspose_0`` submodule that the port folds
   into the Deconv itself;
-- GDN ``beta``/``gamma`` and the entropy bottleneck's ``matrix_i``,
-  ``bias_i``, ``factor_i`` and ``quantiles`` copy verbatim (same
-  reparametrisation, same orientation).
+- GDN ``beta``/``gamma``, the entropy bottleneck's ``matrix_i``,
+  ``bias_i``, ``factor_i`` and ``quantiles``, and CondELIC's ``Gain``,
+  ``InverseGain``, ``HyperGain`` and ``InverseHyperGain`` copy verbatim
+  (same reparametrisation, same orientation).
 
 tpuvc/utils/torch_import.py holds the same mapping in the other direction.
 """
@@ -25,7 +29,11 @@ import re
 import numpy as np
 import torch
 
-_LISTS = ("g_a_layers", "g_s_layers", "h_a_convs")
+_LISTS = (
+    "g_a_layers", "g_s_layers", "h_a_convs",
+    "g_s3_blocks", "prior_fusion_blocks", "entropy_parameters",
+    "channel_context_models", "context_prediction_models",
+)
 
 
 def _flatten(tree, path=()):
@@ -64,7 +72,9 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
             parts.pop()
             if name == "kernel":
                 arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
-        elif name == "kernel":
+        elif name == "kernel" or (
+            name == "weight" and parts and parts[-1].startswith("DeformConv")
+        ):
             arr = arr.transpose(3, 2, 0, 1)
         if name == "kernel":
             name = "weight"
