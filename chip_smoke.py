@@ -14,11 +14,13 @@ runs under its own time limit and prints one JSON line:
   device             card name, power limit, software versions
   build              warp and deform kernels (nvcc, in parallel) and rANS
                      library (g++) build times
-  warp_check         kernel vs warp_plain per shape: max abs error (<= 1e-5),
+  warp_check         kernel vs warp_plain per shape: max abs error (<= 1e-5)
+                     and bit for bit,
                      kernel / plain / F.grid_sample times, byte bound
   deform_check       kernel vs deform_plain at the v4 path's three shapes and
                      three offset spreads: max abs error (<= 2e-5), kernel /
-                     plain times, byte and operation bounds
+                     plain times, byte and operation bounds; at the largest
+                     shape and spread, two launches must give the same bits
   reference_check    small LHBDC forward on the card vs the same on the CPU
   reference_check_v4 small full-width FlowGuidedB forward, card vs CPU
   main_path          LHBDC: B-frames/s, bpp, PSNR, decode_bit_exact, warp
@@ -142,8 +144,8 @@ def warp_check(torch) -> list[dict]:
         err = float((out_k - out_p).abs().max())
         bit_exact = bool(torch.equal(out_k, out_p))
         del out_k, out_p
-        if not err <= 1e-5:
-            raise AssertionError(f"warp {compat} {shape}: max abs err {err} > 1e-5")
+        if not (err <= 1e-5 and bit_exact):
+            raise AssertionError(f"warp {compat} {shape}: max abs err {err}, bit_exact {bit_exact}")
 
         # One F.grid_sample call for the same sampling, as a yardstick only.
         sx, sy, zero = W._scales(compat, H, Wd)
@@ -233,10 +235,18 @@ def deform_check(torch) -> list[dict]:
                 "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
                 "bytes_bound_ms": bound_bytes, "ops_bound_ms": bound_ops,
             }
+            if spread.startswith("tanh") and level == "L1":
+                # Encoder and decoder run the same launch: full size, widest
+                # spread, the same bits twice.
+                first = D.deform_kernel(*args)
+                row["repeat_bit_exact"] = bool(torch.equal(D.deform_kernel(*args), first))
+                del first
             emit(row)
             rows.append(row)
             if not err <= 2e-5:
                 raise AssertionError(f"deform {level} {spread}: max abs err {err} > 2e-5")
+            if row.get("repeat_bit_exact") is False:
+                raise AssertionError(f"deform {level} {spread}: two launches differ")
         del x, masks, weight, bias, spreads
         torch.cuda.empty_cache()
     return rows

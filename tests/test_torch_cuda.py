@@ -51,6 +51,51 @@ def test_warp_kernel_matches_plain(cuda, compat, shape):
     assert torch.equal(out, ref)
 
 
+@pytest.mark.parametrize("compat", ["exact", "flexrate"])
+@pytest.mark.parametrize("C", [3, 48, 64, 96, 128])
+def test_warp_kernel_channel_widths(cuda, compat, C):
+    """Every lane mapping: one lane walking C=3 channels, and C/4 float4
+    lanes at 12, 16, 24 and 32 lanes a pixel, at an unaligned width, with
+    border clamping and with the zero ring."""
+    from tpuvc_torch.ops.warp import warp, warp_plain
+
+    img, flow = (t.to(cuda) for t in _inputs((2, 9, 1917, C), scale=6.0, seed=C))
+    out = warp(img, flow, compat)
+    ref = warp_plain(img, flow, compat)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data starts 4 bytes past an aligned
+    address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("C", [3, 64])
+def test_warp_kernel_misaligned_tensors(cuda, C):
+    """A frame or flow that does not start on a 16- or 8-byte boundary
+    takes the scalar loads, with the same bits."""
+    from tpuvc_torch.ops.warp import warp, warp_plain
+
+    img, flow = (t.to(cuda) for t in _inputs((1, 13, 50, C), seed=1))
+    ref = warp_plain(img, flow, "exact")
+    out = warp(_misaligned(img), _misaligned(flow), "exact")
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def test_warp_kernel_repeat_launch_is_bit_identical(cuda):
+    from tpuvc_torch.ops.warp import warp_kernel
+
+    img, flow = (t.to(cuda) for t in _inputs((2, 136, 240, 128), scale=20.0, seed=2))
+    first = warp_kernel(img, flow, zero=True)
+    assert torch.equal(warp_kernel(img, flow, zero=True), first)
+
+
 def test_warp_kernel_rejects_what_it_does_not_take(cuda):
     from tpuvc_torch.ops.warp import warp_kernel
 
@@ -147,14 +192,20 @@ def _deform_inputs(B, H, W, G, Cg, Og, spread, seed=0):
     return [torch.from_numpy(a) for a in (x, off, masks, weight, bias)]
 
 
-# (B, H, W, G, Cg, Og, offset spread in px): the v4 path's group widths, one
-# shape with Og > 8 (outputs in several register chunks), and one whose
-# group weights exceed shared memory (read from device memory).
+# (B, H, W, G, Cg, Og, offset spread in px): the v4 path's three group
+# widths (Cg 8/12/16, float4 lanes; 16 also with its weights read from
+# device memory), Cg=5 (scalar lanes), Og=11, and G=1 Cg=64 Og=128 whose
+# weights exceed shared memory; widths that leave a ragged last pixel tile
+# (the tile is 32 pixels of a row) and spreads whose samples leave the frame.
 DEFORM_CASES = [
     (2, 24, 40, 16, 8, 4, 3.0),
     (1, 17, 29, 16, 12, 6, 20.0),
     (1, 9, 13, 2, 5, 11, 1.5),
     (1, 6, 7, 1, 64, 128, 2.0),
+    (1, 19, 45, 16, 16, 8, 10.0),
+    (1, 11, 70, 4, 8, 11, 40.0),
+    (2, 5, 33, 3, 5, 4, 6.0),
+    (1, 7, 97, 2, 12, 128, 3.0),
 ]
 
 
@@ -175,6 +226,27 @@ def test_deform_kernel_matches_plain(cuda, case):
     assert float((out - ref).abs().max()) <= 2e-5
     # deterministic: the same launch gives the same bits
     assert torch.equal(deform_kernel(x, off, masks, weight, bias, G), out)
+
+
+def test_deform_kernel_misaligned_input(cuda):
+    """x that does not start on a 16-byte boundary takes the scalar lanes."""
+    from tpuvc_torch.ops.deform import deform_kernel, deform_plain
+
+    x, off, masks, weight, bias = (t.to(cuda) for t in _deform_inputs(1, 9, 37, 4, 8, 4, 3.0))
+    ref = deform_plain(x, off, masks, weight, bias, 4)
+    out = deform_kernel(_misaligned(x), off, masks, weight, bias, 4)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 2e-5
+
+
+def test_deform_kernel_repeat_launch_is_bit_identical(cuda):
+    """Encoder and decoder run the same launch: it gives the same bits, at a
+    v4-like width with offsets that leave the frame."""
+    from tpuvc_torch.ops.deform import deform_kernel
+
+    args = [t.to(cuda) for t in _deform_inputs(2, 40, 150, 16, 8, 4, 15.0, seed=3)]
+    first = deform_kernel(*args, 16)
+    assert torch.equal(deform_kernel(*args, 16), first)
 
 
 def test_deform_kernel_without_masks_or_bias(cuda):

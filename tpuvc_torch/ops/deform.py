@@ -167,15 +167,19 @@ def deform_kernel(x, offsets, masks, weight, bias, groups: int,
         raise ValueError(f"deform_kernel: bias {tuple(bias.shape)} != {(C_out,)}")
     if max(x.numel(), offsets.numel(), B * H * W * C_out) >= 2**31:
         raise ValueError(f"deform_kernel indexes in int32; {tuple(offsets.shape)} is too large")
+    if C // (4 if Cg % 4 == 0 else 1) > 512:
+        raise ValueError(f"deform_kernel takes at most 512 lanes (C/4, or C where "
+                         f"C/G % 4 != 0) a pixel; C={C}, groups={G}")
     x, offsets, masks = x.contiguous(), offsets.contiguous(), masks.contiguous()
-    # (C_out, Cg, K, K) -> (G, T, Cg, Og): a group's weights in one block
-    w_g = weight.reshape(G, Og, Cg, K * K).permute(0, 3, 2, 1).contiguous()
+    # (C_out, Cg, K, K) -> (T, Cg, C_out): per tap and group channel, the
+    # outputs of every group side by side
+    w_t = weight.reshape(C_out, Cg, K * K).permute(2, 1, 0).contiguous()
     bias = bias.contiguous()
     out = torch.empty((B, H, W, C_out), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _get_lib().tpuvc_deform_conv_nhwc(
-            x.data_ptr(), offsets.data_ptr(), masks.data_ptr(), w_g.data_ptr(),
+            x.data_ptr(), offsets.data_ptr(), masks.data_ptr(), w_t.data_ptr(),
             bias.data_ptr(), out.data_ptr(), B, H, W, G, Cg, Og, K, stream,
         )
     if rc != 0:

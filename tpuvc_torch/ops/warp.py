@@ -118,8 +118,9 @@ def build_kernel() -> None:
 def warp_kernel(img: torch.Tensor, flow: torch.Tensor, sx: float = 1.0,
                 sy: float = 1.0, zero: bool = False) -> torch.Tensor:
     """Launch the CUDA warp kernel: img (B,H,W,C), flow (B,H,W,2), both
-    contiguous float32 on one CUDA device. ``zero`` samples over a ring of
-    zeros (coordinates of the ringed frame) instead of clamping to the
+    contiguous float32 on one CUDA device. ``zero`` is the flexrate mode:
+    the flow shifted by -0.5 inside the kernel, then sampled over a ring of
+    zeros (coordinates of the ringed frame) instead of clamped to the
     border. Raises on anything the kernel does not take."""
     if img.device.type != "cuda" or flow.device != img.device:
         raise ValueError(
@@ -135,8 +136,10 @@ def warp_kernel(img: torch.Tensor, flow: torch.Tensor, sx: float = 1.0,
         raise ValueError(f"flow shape {tuple(flow.shape)} != {(B, H, W, 2)}")
     if not (img.is_contiguous() and flow.is_contiguous()):
         raise ValueError("warp_kernel takes contiguous img and flow")
-    if B * H * W * C >= 2**31:
+    if B * H * W * max(C, 2) >= 2**31:
         raise ValueError(f"warp_kernel indexes in int32; {tuple(img.shape)} is too large")
+    if max(B, H) > 65535:
+        raise ValueError(f"warp_kernel launches over B and H; {(B, H)} exceeds 65535")
     out = torch.empty_like(img)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
@@ -171,7 +174,7 @@ class _WarpKernelFn(torch.autograd.Function):
         with torch.enable_grad():
             i = img.detach().requires_grad_(need_img)
             f = flow.detach().requires_grad_(need_flow)
-            out = _warp_plain_sampled(i, f, sx, sy, zero)
+            out = _warp_plain_sampled(i, f - 0.5 if zero else f, sx, sy, zero)
             inputs = [t for t in (i, f) if t.requires_grad]
             grads = iter(torch.autograd.grad(out, inputs, grad))
         gi = next(grads) if need_img else None
@@ -189,8 +192,6 @@ def warp(img: torch.Tensor, flow: torch.Tensor, compat: str = "exact") -> torch.
     if img.device.type == "cpu":
         return warp_plain(img, flow, compat)
     sx, sy, zero = _scales(compat, H, W)
-    if zero:
-        flow = flow - 0.5
     img, flow = img.contiguous(), flow.contiguous()
     if torch.is_grad_enabled() and (img.requires_grad or flow.requires_grad):
         return _WarpKernelFn.apply(img, flow, sx, sy, zero)
