@@ -5,11 +5,12 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds the port's kernels from the sources in the checkout, holds each
 against its plain PyTorch version at the shapes the paths give it, and
-drives two paths once each, both with seeded weights: LHBDC(N=128) codes a
-GOP-16, 2-GOP window of 1088x1920 B-frames at batch 4 to real rANS streams,
-and FlowGuidedB (v4, full width) codes the same window at batch 2; each
-decode must reproduce its encoder's reconstructions bit for bit. Each phase
-runs under its own time limit and prints one JSON line:
+drives the paths with seeded weights: LHBDC(N=128) codes a GOP-16, 2-GOP
+window of 1088x1920 B-frames at batch 4 to real rANS streams, FlowGuidedB
+(v4, full width) codes the same window at batch 2, and the encode_v /
+decode_v CLIs code whole synthetic sequences (ELIC intra + B-frames) to a
+file and back; each decode must reproduce its encoder's reconstructions bit
+for bit. Each phase runs under its own time limit and prints JSON lines:
 
   device             card name, power limit, software versions
   build              warp and deform kernels (nvcc, in parallel) and rANS
@@ -17,16 +18,27 @@ runs under its own time limit and prints one JSON line:
   warp_check         kernel vs warp_plain per shape: max abs error (<= 1e-5)
                      and bit for bit,
                      kernel / plain / F.grid_sample times, byte bound
-  deform_check       kernel vs deform_plain at the v4 path's three shapes and
-                     three offset spreads: max abs error (<= 2e-5), kernel /
-                     plain times, byte and operation bounds; at the largest
-                     shape and spread, two launches must give the same bits
+  deform_check       kernel vs deform_plain at the v4 paths' three shapes
+                     (batch 2: three offset spreads; batch 1: smooth): max
+                     abs error (<= 2e-5), kernel / plain times, byte and
+                     operation bounds; at the largest shape and spread, two
+                     launches must give the same bits
   reference_check    small LHBDC forward on the card vs the same on the CPU
   reference_check_v4 small full-width FlowGuidedB forward, card vs CPU
   main_path          LHBDC: B-frames/s, bpp, PSNR, decode_bit_exact, warp
                      launches, peak device memory
   main_path_v4       FlowGuidedB: the same, with deform launches and the
-                     offset spread it measured
+                     flow and offset spread it measured
+  sequence_cli       the port's CLIs as a user runs them: encode_v codes
+                     synthetic 1088x1920 frames (ELIC intra anchors and
+                     B-frames) to one file, decode_v decodes it in another
+                     process; one row per run (LHBDC level-batched 33
+                     frames, FlowGuidedB sequential 17 frames, its flow and
+                     offset heads seeded in both processes): frames/s,
+                     intra ms per frame, bpp, PSNR, decode_bit_exact,
+                     launches, peak device memory
+  path_shapes_check  every kernel shape the paths launched that the checks
+                     above did not cover, held against the plain version
 
 then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises
@@ -52,6 +64,8 @@ WARP_OPS_PER_ELEMENT = 20  # coordinates, weights and the 4-tap blend
 # Shapes of the main path's warps: SPyNet's finest and coarsest pyramid
 # levels (two flows batched at B=4), motion compensation at B=4, the DMC
 # context-warp width at an unaligned size, and one zero-padded warp.
+# Every other shape a path launches is checked after the paths ran
+# (path_shapes_check).
 WARP_SHAPES = [
     ("lhbdc", (8, 1088, 1920, 3)),
     ("lhbdc", (4, 1088, 1920, 3)),
@@ -62,17 +76,31 @@ WARP_SHAPES = [
     ("exact", (2, 544, 960, 64)),
     ("exact", (2, 272, 480, 96)),
     ("exact", (2, 136, 240, 128)),
+    # sequence_cli's LHBDC level 1 (two B-frames): motion compensation at
+    # B=2, SPyNet at B=4 down to its coarsest level.
+    ("lhbdc", (2, 1088, 1920, 3)),
+    ("lhbdc", (4, 34, 60, 3)),
+    # sequence_cli's sequential FlowGuidedB: the feature warps at B=1.
+    ("exact", (1, 544, 960, 64)),
+    ("exact", (1, 272, 480, 96)),
+    ("exact", (1, 136, 240, 128)),
 ]
 
 # The coded window: bench.py's frame size and GOP, two GOPs.
 FRAME, GOP, WINDOW_GOPS = (1088, 1920), 16, 2
 
-# FlowGuidedB's deform convs at B=2, 1088x1920: (level, x shape, output
-# channels, tanh bound of its offsets in px). 16 groups, 3x3 taps.
+# FlowGuidedB's deform convs at 1088x1920: (level, x shape, output
+# channels, tanh bound of its offsets in px, offset spreads to check).
+# 16 groups, 3x3 taps. B=2 is main_path_v4's batch, with all three
+# spreads; B=1 is sequence_cli's sequential mode, smooth offsets only.
+DEFORM_SPREADS = ("zero", "smooth", "tanh")
 DEFORM_SHAPES = [
-    ("L1", (2, 544, 960, 128), 64, 40.0),
-    ("L2", (2, 272, 480, 192), 96, 20.0),
-    ("L3", (2, 136, 240, 256), 128, 10.0),
+    ("L1", (2, 544, 960, 128), 64, 40.0, DEFORM_SPREADS),
+    ("L2", (2, 272, 480, 192), 96, 20.0, DEFORM_SPREADS),
+    ("L3", (2, 136, 240, 256), 128, 10.0, DEFORM_SPREADS),
+    ("L1", (1, 544, 960, 128), 64, 40.0, ("smooth",)),
+    ("L2", (1, 272, 480, 192), 96, 20.0, ("smooth",)),
+    ("L3", (1, 136, 240, 256), 128, 10.0, ("smooth",)),
 ]
 DEFORM_GROUPS, DEFORM_TAPS = 16, 9
 
@@ -185,34 +213,46 @@ def warp_check(torch) -> list[dict]:
     return rows
 
 
-def deform_check(torch) -> list[dict]:
-    """The deform kernel against deform_plain at the v4 path's three shapes,
-    with offsets at three spreads: 0 (integer taps), smooth +-5 px, and
-    the level's tanh bound (40/20/10 px: many samples leave the frame)."""
+def smooth_offsets(torch, gen, B, H, W, n):
+    """Offsets that vary smoothly over +-5 px: a coarse random grid upsampled."""
     import torch.nn.functional as F
 
+    coarse = torch.rand((B, n, H // 16, W // 16), generator=gen, device="cuda")
+    up = 10.0 * F.interpolate(coarse, size=(H, W), mode="bilinear") - 5.0
+    return up.permute(0, 2, 3, 1).contiguous()
+
+
+def deform_inputs(torch, gen, B, H, W, C, C_out, G=DEFORM_GROUPS, T=DEFORM_TAPS):
+    """Seeded x, masks, weight (C_out, C/G, 3, 3) and bias for one deform conv."""
+    Cg = C // G
+    x = torch.randn((B, H, W, C), generator=gen, device="cuda")
+    masks = torch.rand((B, H, W, G * T), generator=gen, device="cuda")
+    weight = torch.randn((C_out, Cg, 3, 3), generator=gen, device="cuda") / (T * Cg) ** 0.5
+    bias = 0.1 * torch.randn((C_out,), generator=gen, device="cuda")
+    return x, masks, weight, bias
+
+
+def deform_check(torch) -> list[dict]:
+    """The deform kernel against deform_plain at the v4 path's shapes, with
+    offsets at up to three spreads: 0 (integer taps), smooth +-5 px, and
+    the level's tanh bound (40/20/10 px: many samples leave the frame)."""
     from tpuvc_torch.ops import deform as D
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     G, T = DEFORM_GROUPS, DEFORM_TAPS
     rows = []
-    for level, (B, H, W, C), C_out, bound in DEFORM_SHAPES:
+    for level, (B, H, W, C), C_out, bound, kinds in DEFORM_SHAPES:
         Cg, Og = C // G, C_out // G
-        x = torch.randn((B, H, W, C), generator=gen, device="cuda")
-        masks = torch.rand((B, H, W, G * T), generator=gen, device="cuda")
-        weight = torch.randn((C_out, Cg, 3, 3), generator=gen, device="cuda") / (T * Cg) ** 0.5
-        bias = 0.1 * torch.randn((C_out,), generator=gen, device="cuda")
-        coarse = torch.rand((B, G * T * 2, H // 16, W // 16), generator=gen, device="cuda")
-        spreads = {
-            "zero": torch.zeros((B, H, W, G * T * 2), device="cuda"),
-            "smooth_5px": (10.0 * F.interpolate(coarse, size=(H, W), mode="bilinear") - 5.0)
-            .permute(0, 2, 3, 1).contiguous(),
-            f"tanh_{bound:g}px": bound * torch.tanh(
-                2.0 * torch.randn((B, H, W, G * T * 2), generator=gen, device="cuda")
-            ),
+        x, masks, weight, bias = deform_inputs(torch, gen, B, H, W, C, C_out)
+        n_off = G * T * 2
+        make = {
+            "zero": lambda: ("zero", torch.zeros((B, H, W, n_off), device="cuda")),
+            "smooth": lambda: ("smooth_5px", smooth_offsets(torch, gen, B, H, W, n_off)),
+            "tanh": lambda: (f"tanh_{bound:g}px", bound * torch.tanh(
+                2.0 * torch.randn((B, H, W, n_off), generator=gen, device="cuda"))),
         }
-        del coarse
-        n_bytes = 4 * (x.numel() + spreads["zero"].numel() + masks.numel()
+        spreads = dict(make[k]() for k in kinds)
+        n_bytes = 4 * (x.numel() + B * H * W * n_off + masks.numel()
                        + B * H * W * C_out + weight.numel() + bias.numel())
         bound_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
         bound_ops = 1e3 * deform_ops(B, H, W, G, Cg, Og) / F32_OPS_PER_S
@@ -235,7 +275,7 @@ def deform_check(torch) -> list[dict]:
                 "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
                 "bytes_bound_ms": bound_bytes, "ops_bound_ms": bound_ops,
             }
-            if spread.startswith("tanh") and level == "L1":
+            if spread.startswith("tanh") and level == "L1" and B == 2:
                 # Encoder and decoder run the same launch: full size, widest
                 # spread, the same bits twice.
                 first = D.deform_kernel(*args)
@@ -271,6 +311,68 @@ def seed_zero_heads(model, generator, flow_scale=1.0, offset_scale=0.05):
         lecun_normal_(conv.weight, generator)
         conv.weight.data.mul_(scale)
     return model
+
+
+def spread_hooks(torch, model, spread: dict) -> list:
+    """Forward hooks that put the first flow FlowNET estimates and the first
+    offsets each deform conv takes into ``spread``: their std and largest
+    magnitude in px and the share of fractional values."""
+
+    def measure(key, pick):
+        def hook(mod, args, out):
+            if key not in spread:
+                v = pick(args, out)
+                frac = v - torch.floor(v)
+                spread[key] = {
+                    "std_px": float(v.std()), "max_abs_px": float(v.abs().max()),
+                    "fractional_share": float(((frac > 1e-3) & (frac < 1 - 1e-3)).float().mean()),
+                }
+        return hook
+
+    hooks = [model.flow_estimator.register_forward_hook(measure("flow", lambda a, o: o))]
+    return hooks + [
+        getattr(model, f"offset_diversity_l{i}").DeformConv_0.register_forward_hook(
+            measure(f"L{i}", lambda a, o: a[1])
+        )
+        for i in (1, 2, 3)
+    ]
+
+
+def check_spread(spread: dict, where: str) -> None:
+    """Fail unless the flow and the offsets of all three levels were
+    measured and are spread over fractional values."""
+    if set(spread) != {"flow", "L1", "L2", "L3"} or not all(
+        v["fractional_share"] > 0 and v["std_px"] > 0 for v in spread.values()
+    ):
+        raise AssertionError(f"{where}: the flow and offsets have no fractional spread: {spread}")
+
+
+@contextlib.contextmanager
+def cli_heads_seeded(spread: dict | None = None):
+    """While open, the CLIs' FlowGuidedB (``encode_b.load_model``, which
+    encode_v and decode_v call) gets :func:`seed_zero_heads` with the
+    generator :func:`v4_model` uses, so an encoder and a decoder in two
+    processes build the same fractional flows and offsets. With
+    ``spread``, the model's :func:`spread_hooks` fill it."""
+    import torch
+
+    from tpuvc_torch.cli import encode_b
+
+    load = encode_b.load_model
+
+    def load_model(args):
+        model = load(args)
+        if args.family == "flowguided_b":
+            seed_zero_heads(model, torch.Generator().manual_seed(1))
+            if spread is not None:
+                spread_hooks(torch, model, spread)
+        return model
+
+    encode_b.load_model = load_model
+    try:
+        yield
+    finally:
+        encode_b.load_model = load
 
 
 def v4_model(torch, N=128, seed=0, **kw):
@@ -502,6 +604,85 @@ def drive_window(torch, coder, phase_name: str, model: str, B: int, family: str,
     return row
 
 
+class LaunchLog:
+    """Stands in for a kernel's loaded library (the wrappers reach it
+    through ``_get_lib()``): records the shape arguments of every launch of
+    ``fn``, then launches. ``dims`` picks them from the C call's arguments."""
+
+    def __init__(self, lib, fn: str, dims: slice):
+        self._lib, self._fn, self._dims = lib, fn, dims
+        self.shapes: set = set()
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != self._fn:
+            return fn
+
+        def launch(*args):
+            self.shapes.add(tuple(args[self._dims]))
+            return fn(*args)
+
+        return launch
+
+
+def log_launches() -> dict:
+    """Put a LaunchLog in front of each built kernel library. Keys: warp
+    (B, H, W, C, sx, sy, zero), deform (B, H, W, G, Cg, Og, K)."""
+    from tpuvc_torch.ops import deform, warp
+
+    warp._lib = LaunchLog(warp._get_lib(), "tpuvc_warp_bilinear_nhwc", slice(3, 10))
+    deform._lib = LaunchLog(deform._get_lib(), "tpuvc_deform_conv_nhwc", slice(6, 13))
+    return {"warp": warp._lib.shapes, "deform": deform._lib.shapes}
+
+
+def path_shapes_check(torch, logged: dict, warp_rows, deform_rows) -> list[dict]:
+    """Every warp and deform shape a path launched that warp_check and
+    deform_check did not hold against the plain versions (SPyNet's middle
+    pyramid levels, for one): the kernel against warp_plain's sampling
+    (bit for bit) and deform_plain (smooth +-5 px offsets, <= 2e-5) once,
+    on seeded inputs."""
+    from tpuvc_torch.ops import deform as D
+    from tpuvc_torch.ops import warp as W
+
+    checked_warp = set()
+    for r in warp_rows:
+        B, H, Wd, C = r["shape"]
+        sx, sy, zero = W._scales(r["compat"], H, Wd)
+        checked_warp.add((B, H, Wd, C, sx, sy, int(zero)))
+    checked_deform = {(*r["x_shape"][:3], r["groups"], r["x_shape"][3] // r["groups"],
+                       r["out_channels"] // r["groups"], 3) for r in deform_rows}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for key in sorted(logged["warp"] - checked_warp):
+        B, H, Wd, C, sx, sy, zero = key
+        img = torch.rand((B, H, Wd, C), generator=gen, device="cuda")
+        flow = 4.0 * torch.randn((B, H, Wd, 2), generator=gen, device="cuda")
+        out_k = W.warp_kernel(img, flow, sx, sy, bool(zero))
+        out_p = W._warp_plain_sampled(img, flow - 0.5 if zero else flow, sx, sy, bool(zero))
+        rows.append({"phase": "path_shapes_check", "kernel": "warp", "shape": [B, H, Wd, C],
+                     "sx": sx, "sy": sy, "zero": bool(zero),
+                     "max_abs_err": float((out_k - out_p).abs().max()),
+                     "bit_exact": bool(torch.equal(out_k, out_p))})
+        emit(rows[-1])
+        if not rows[-1]["bit_exact"]:
+            raise AssertionError(f"warp at a path's shape differs from warp_plain: {rows[-1]}")
+    for key in sorted(logged["deform"] - checked_deform):
+        B, H, Wd, G, Cg, Og, K = key
+        x, masks, weight, bias = deform_inputs(torch, gen, B, H, Wd, G * Cg, G * Og, G, K * K)
+        off = smooth_offsets(torch, gen, B, H, Wd, G * K * K * 2)
+        args = (x, off, masks, weight, bias, G, K)
+        err = float((D.deform_kernel(*args) - D.deform_plain(*args)).abs().max())
+        rows.append({"phase": "path_shapes_check", "kernel": "deform",
+                     "x_shape": [B, H, Wd, G * Cg], "groups": G, "out_channels": G * Og,
+                     "spread": "smooth_5px", "max_abs_err": err})
+        emit(rows[-1])
+        if not err <= 2e-5:
+            raise AssertionError(f"deform at a path's shape differs from deform_plain: {rows[-1]}")
+    emit({"phase": "path_shapes_check", "warp_shapes_launched": len(logged["warp"]),
+          "deform_shapes_launched": len(logged["deform"]), "checked_here": len(rows)})
+    return rows
+
+
 def reset_launches() -> None:
     from tpuvc_torch.ops import deform, warp
 
@@ -528,31 +709,14 @@ def main_path(torch) -> dict:
 def main_path_v4(torch) -> dict:
     """FlowGuidedB at full width, seeded weights and heads, at batch 2
     (scripts/bench_families.py's v4 window: s=1.0, get_scales per chunk,
-    down_ratio 1). The warm window's first chunk measures the offsets'
-    spread, which must be fractional and nonzero."""
+    down_ratio 1). The warm window's first chunk measures the flow's and
+    the offsets' spread, which must be fractional and nonzero."""
     from tpuvc_torch.models.flowguided_b import FlowGuidedBCoder
 
     model = v4_model(torch)
     coder = FlowGuidedBCoder(model, device="cuda")
     spread = {}
-
-    def measure(level):
-        def hook(mod, args, out):
-            off = args[1]
-            if level not in spread:
-                frac = off - torch.floor(off)
-                spread[level] = {
-                    "std_px": float(off.std()), "max_abs_px": float(off.abs().max()),
-                    "fractional_share": float(((frac > 1e-3) & (frac < 1 - 1e-3)).float().mean()),
-                }
-        return hook
-
-    hooks = [
-        getattr(model, f"offset_diversity_l{i}").DeformConv_0.register_forward_hook(
-            measure(f"L{i}")
-        )
-        for i in (1, 2, 3)
-    ]
+    hooks = spread_hooks(torch, model, spread)
     row = drive_window(
         torch, coder, "main_path_v4",
         "FlowGuidedB fc (64,96,128) N=M=128 levels 5, seeded weights and heads",
@@ -560,11 +724,209 @@ def main_path_v4(torch) -> dict:
         after_warm=lambda: [h.remove() for h in hooks],
         extra={"s": 1.0, "down_ratio": 1, "offset_spread": spread},
     )
-    if len(spread) != 3 or not all(
-        v["fractional_share"] > 0 and v["std_px"] > 0 for v in spread.values()
-    ):
-        raise AssertionError(f"the v4 path's offsets have no fractional spread: {spread}")
+    check_spread(spread, "main_path_v4")
     return row
+
+
+# The CLI runs of sequence_cli: (path name, family, encode_v arguments).
+# LHBDC takes bench.py's window settings with real ELIC anchors; FlowGuidedB
+# runs the sequential mode.
+SEQUENCE_RUNS = [
+    ("lhbdc", "lhbdc", [
+        "--family", "lhbdc", "--synthetic", "33", "--gop", "16", "--level_batched",
+        "--max_batch", "4", "--window_gops", "2", "--compute_dtype", "bfloat16",
+        "--l", "845"]),
+    ("flowguided_b", "flowguided_b", [
+        "--family", "flowguided_b", "--synthetic", "17", "--gop", "16",
+        "--compute_dtype", "bfloat16", "--s", "1.0"]),
+]
+SEQUENCE_SIZE = ["--width", str(FRAME[1]), "--height", str(FRAME[0])]
+SEQUENCE_MODEL = ["--init", "random", "--device", "cuda"]
+
+# Run in a fresh interpreter by sequence_cli, from the repository root:
+# decode_v.main twice (a cold process, then warm) with FlowGuidedB's heads
+# seeded as in the encoder, printing the launches, wall seconds, peak
+# memory and one sha256 per float32 reconstruction as the last line.
+DECODE_IN_A_NEW_PROCESS = """
+import hashlib, json, sys, time
+import torch
+import chip_smoke
+from tpuvc_torch.cli import decode_v
+from tpuvc_torch.ops import deform, warp
+out = {}
+for run in ("cold", "warm"):
+    warp.warp_kernel.launches = deform.deform_kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with chip_smoke.cli_heads_seeded():
+        rec = decode_v.main(sys.argv[1:])
+    out[run] = {
+        "main_s": time.perf_counter() - t0,
+        "launches": {"warp": warp.warp_kernel.launches,
+                     "deform": deform.deform_kernel.launches},
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "sha256": {i: hashlib.sha256(t.numpy().tobytes()).hexdigest() for i, t in rec.items()},
+    }
+print(json.dumps(out))
+"""
+
+
+def cli_seconds(text: str, verb: str) -> float:
+    """The coding time a CLI prints on its summary line ("<verb> ... in Ts")."""
+    import re
+
+    found = re.findall(rf"^{verb} .* in ([0-9.]+)s$", text, flags=re.M)
+    if not found:
+        raise AssertionError(f"no '{verb} ... in Ts' line in the CLI's output")
+    return float(found[-1])
+
+
+def sequence_cli(torch) -> list[dict]:
+    """encode_v in this process (a warm-up call, then a timed one with the
+    launch counts set to 0 just before and read just after), decode_v on
+    the file in a fresh process (DECODE_IN_A_NEW_PROCESS), whose per-frame
+    sha256 must equal the encoder's; then ELIC alone at batch 3 on the
+    window's three anchors. FlowGuidedB's flow and offset heads are seeded
+    in both processes (cli_heads_seeded): the run fails unless its flow
+    and offsets are fractional."""
+    import hashlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from tpuvc_torch.cli import encode_v
+    from tpuvc_torch.coder import parallel
+    from tpuvc_torch.coder.container import VSequenceBitstream
+    from tpuvc_torch.data.uvg import SyntheticSequence, device_frame
+    from tpuvc_torch.eval.metrics import psnr_uint8_np
+    from tpuvc_torch.ops.precision import policy_from_name
+
+    h, w = FRAME
+    root = os.path.dirname(os.path.abspath(__file__))
+    rows = []
+    src = SyntheticSequence(n_frames=2 * GOP + 1, h=h, w=w)  # encode_v's frames
+    with tempfile.TemporaryDirectory() as tmp:
+        for path, family, argv in SEQUENCE_RUNS:
+            bin_path = os.path.join(tmp, f"{path}.tpvb")
+            enc_argv = argv + SEQUENCE_SIZE + SEQUENCE_MODEL + ["--bin", bin_path]
+            spread = {}
+            try:
+                with cli_heads_seeded(spread):
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        encode_v.main(enc_argv)  # warm-up
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    log = io.StringIO()
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    with contextlib.redirect_stdout(log):
+                        recons = encode_v.main(enc_argv)
+                    main_s = time.perf_counter() - t0
+                    enc_launches = read_launches()
+            finally:
+                parallel.shutdown()
+            enc_peak = torch.cuda.max_memory_allocated() / 2**30
+            enc_hashes = {str(i): hashlib.sha256(t.numpy().tobytes()).hexdigest()
+                          for i, t in recons.items()}
+            with open(bin_path, "rb") as f:
+                blob = f.read()
+            seq = VSequenceBitstream.deserialize(blob)
+            n = seq.n_frames
+            if len(src) < n:
+                src = SyntheticSequence(n_frames=n, h=h, w=w)
+            psnr = float(np.mean([psnr_uint8_np(src.u8(i)[0, :h, :w], recons[i].numpy())
+                                  for i in range(n)]))
+            finite = all(bool(torch.isfinite(t).all()) and tuple(t.shape) == (h, w, 3)
+                         for t in recons.values())
+            del recons
+
+            dec_argv = ["--bin", bin_path, "--out_dir", os.path.join(tmp, f"{path}_png")]
+            proc = subprocess.run(
+                [sys.executable, "-c", DECODE_IN_A_NEW_PROCESS, *dec_argv, *SEQUENCE_MODEL],
+                cwd=root, capture_output=True, text=True, timeout=420,
+            )
+            if proc.returncode != 0:
+                raise AssertionError(f"decode_v ({path}) failed:\n{proc.stderr[-4000:]}")
+            dec = json.loads(proc.stdout.strip().splitlines()[-1])
+            bit_exact = all(dec[r]["sha256"] == enc_hashes for r in ("cold", "warm"))
+            enc_s = cli_seconds(log.getvalue(), "wrote")
+            dec_s = cli_seconds(proc.stdout, "decoded")
+            png_s = cli_seconds(proc.stdout, "wrote")
+            n_i = sum(1 for t, _, _ in seq.frames if t == "I")
+            launches = {k: enc_launches[k] + dec["warm"]["launches"][k] for k in enc_launches}
+            row = {
+                "phase": "sequence_cli", "path": path, "family": family,
+                "encode_argv": argv, "frame": [h, w], "gop": seq.gop,
+                "frames": n, "i_frames": n_i, "b_frames": n - n_i,
+                "level_batched": seq.mode == 1, "max_batch": seq.max_batch,
+                "window_gops": seq.window_gops,
+                "compute_dtype": "bfloat16" if seq.dtype == 1 else "float32",
+                "encode_s": enc_s, "encode_fps": n / enc_s, "encode_main_s": main_s,
+                "decode_s": dec_s, "decode_fps": n / dec_s,
+                # decode_s includes writing the PNGs (zlib on the host):
+                # without it, the codec's own decode rate
+                "decode_png_s": png_s, "decode_fps_without_png": n / (dec_s - png_s),
+                "decode_main_s": dec["warm"]["main_s"],
+                "decode_cold_process_main_s": dec["cold"]["main_s"],
+                "bytes": len(blob), "bpp": 8 * len(blob) / (n * h * w), "psnr_db": psnr,
+                "decode_bit_exact": bit_exact, "decoder": "separate process",
+                "finite": finite, "launches": launches,
+                "launches_encode": enc_launches,
+                "launches_decode": dec["warm"]["launches"],
+                "peak_mem_gib_encode": enc_peak,
+                "peak_mem_gib_decode": dec["warm"]["peak_mem_gib"],
+            }
+            if family == "flowguided_b":
+                row["flow_offset_spread"] = spread
+            rows.append(row)
+            if not bit_exact:
+                emit(row)
+                raise AssertionError(f"sequence_cli {path}: the decoder's frames differ")
+            if not finite:
+                emit(row)
+                raise AssertionError(f"sequence_cli {path}: bad reconstructions")
+            if family == "flowguided_b":
+                try:
+                    check_spread(spread, f"sequence_cli {path}")
+                except AssertionError:
+                    emit(row)
+                    raise
+            need = ["warp"] + (["deform"] if family == "flowguided_b" else [])
+            for k in need:
+                if enc_launches[k] == 0 or dec["warm"]["launches"][k] == 0:
+                    emit(row)
+                    raise AssertionError(f"sequence_cli {path} launched no {k} kernel")
+
+        # ELIC alone at batch 3: the 2-GOP window's fresh anchors 0, 16, 32.
+        args = encode_v.build_parser().parse_args(SEQUENCE_MODEL)
+        intra = encode_v.build_intra(args, torch.device("cuda"))
+        x = torch.cat([device_frame(src.u8(i), "cuda") for i in (0, GOP, 2 * GOP)])
+        try:
+            with policy_from_name("bfloat16"):
+                for _ in range(2):  # the first pair warms up
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    enc = intra.compress_batch(x)
+                    y_hat = intra.synthesize(enc["y_hat"])
+                    torch.cuda.synchronize()
+                    t_enc = time.perf_counter() - t0
+                    dec = intra.decompress_batch(enc["strings"], enc["shape"])
+                    torch.cuda.synchronize()
+                    t_dec = time.perf_counter() - t0 - t_enc
+        finally:
+            parallel.shutdown()
+        intra_exact = bool(torch.equal(dec, y_hat))
+    intra_row = {"intra_encode_ms_per_frame": 1e3 * t_enc / 3,
+                 "intra_decode_ms_per_frame": 1e3 * t_dec / 3,
+                 "intra_batch": 3, "intra_bit_exact": intra_exact,
+                 "intra_model": "ELIC N=192 M=320 groups (16,16,32,64,192), seeded"}
+    for row in rows:
+        row.update(intra_row)
+        emit(row)
+    if not intra_exact:
+        raise AssertionError("ELIC decompress_batch differs from the encoder's synthesis")
+    return rows
 
 
 def build_kernels() -> dict:
@@ -605,6 +967,7 @@ def main() -> int:
 
     with phase("build", 300):
         emit({"phase": "build", **build_kernels()})
+        logged = log_launches()
 
     with phase("warp_check", 300):
         warp_rows = warp_check(torch)
@@ -618,18 +981,26 @@ def main() -> int:
         lhbdc = main_path(torch)
     with phase("main_path_v4", 420):
         v4 = main_path_v4(torch)
+    with phase("sequence_cli", 600):
+        seq_rows = sequence_cli(torch)
+    with phase("path_shapes_check", 120):
+        path_rows = path_shapes_check(torch, logged, warp_rows, deform_rows)
 
     def by_path(kernel):
-        return {"lhbdc": lhbdc["launches"][kernel], "flowguided_b": v4["launches"][kernel]}
+        paths = {"lhbdc": lhbdc["launches"][kernel], "flowguided_b": v4["launches"][kernel]}
+        paths.update({f"sequence_cli_{r['path']}": r["launches"][kernel] for r in seq_rows})
+        return paths
 
     warp_head = warp_rows[0]  # the largest shape: SPyNet's finest level
     # The deform kernel's headline: the v4 path's largest level, smooth offsets.
-    deform_head = next(r for r in deform_rows if r["level"] == "L1" and r["spread"] == "smooth_5px")
+    deform_head = next(r for r in deform_rows if r["level"] == "L1" and r["x_shape"][0] == 2
+                       and r["spread"] == "smooth_5px")
     kernels = []
     for kernel, head, rows, replaces in (
         ("warp", warp_head, warp_rows, "tpuvc/ops/warp_pallas.py:103"),
         ("deform", deform_head, deform_rows, "tpuvc/ops/deform_pallas.py:101"),
     ):
+        rows = rows + [r for r in path_rows if r["kernel"] == kernel]
         launches = by_path(kernel)
         kernels.append({
             "name": kernel, "route": "cuda", "source": f"tpuvc_torch/csrc/{kernel}.cu",

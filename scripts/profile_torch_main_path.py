@@ -2,13 +2,15 @@
 
 Run from the repository root:
 
-    python3 scripts/profile_torch_main_path.py [--family lhbdc|flowguided_b]
+    python3 scripts/profile_torch_main_path.py [--family lhbdc|flowguided_b|elic]
 
 Codes chip_smoke.py's window (1088x1920, GOP-16, 2 GOPs, bfloat16 policy,
 seeded weights) for one codec family: LHBDC(N=128) at batch 4 (the
 default), or FlowGuidedB at full width at batch 2 (chip_smoke.py's v4
-path). It codes the window once to warm up, then encodes and decodes it
-again under torch.profiler. Prints JSON lines: the wall time of
+path); or, with ``elic``, the window's three intra anchors (frames 0, 16,
+32 of encode_v's synthetic sequence) through ELIC (N=192, M=320) at batch
+3, as encode_v's --level_batched codes them. It codes once to warm up,
+then encodes and decodes again under torch.profiler. Prints JSON lines: the wall time of
 each side, the summed device time of all kernels and its share of the wall
 time (the device's busy share; one stream, so kernels do not overlap), the
 device time by kernel family, and the 25 kernels with the most device time;
@@ -55,34 +57,55 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--family", choices=("lhbdc", "flowguided_b"), default="lhbdc")
+    parser.add_argument("--family", choices=("lhbdc", "flowguided_b", "elic"),
+                        default="lhbdc")
     codec = parser.parse_args().family
     sys.path.insert(0, ROOT)
     import chip_smoke
     from tpuvc_torch.coder import parallel
     from tpuvc_torch.ops.precision import policy_from_name
 
-    if codec == "lhbdc":
-        from tpuvc_torch.models.lhbdc import LHBDC, LHBDCCoder
+    if codec == "elic":
+        from tpuvc_torch.data.uvg import SyntheticSequence, device_frame
+        from tpuvc_torch.models.elic import ELIC, ELICCoder
 
-        coder = LHBDCCoder(LHBDC(N=128, generator=torch.Generator().manual_seed(0)))
-        batch = 4
+        intra = ELICCoder(ELIC(generator=torch.Generator().manual_seed(0)))
+        src = SyntheticSequence(n_frames=33, h=1088, w=1920)
+        x = torch.cat([device_frame(src.u8(i), "cuda") for i in (0, 16, 32)])
+        batch = n_real = 3
+
+        def code_window():
+            out = intra.compress_batch_async(x)
+            intra.synthesize(out["y_hat"])
+            return out["strings_resolve"](), out["shape"]
+
+        def decode_window(coded):
+            return intra.decompress_batch(*coded)
     else:
-        from tpuvc_torch.models.flowguided_b import FlowGuidedBCoder
+        if codec == "lhbdc":
+            from tpuvc_torch.models.lhbdc import LHBDC, LHBDCCoder
 
-        coder = FlowGuidedBCoder(chip_smoke.v4_model(torch))
-        batch = 2
-    code_window, decode_window, _, n_real = chip_smoke.bench_window(
-        torch, coder, B=batch, family=codec
-    )
+            coder = LHBDCCoder(LHBDC(N=128, generator=torch.Generator().manual_seed(0)))
+            batch = 4
+        else:
+            from tpuvc_torch.models.flowguided_b import FlowGuidedBCoder
+
+            coder = FlowGuidedBCoder(chip_smoke.v4_model(torch))
+            batch = 2
+        window, decode_window, _, n_real = chip_smoke.bench_window(
+            torch, coder, B=batch, family=codec
+        )
+
+        def code_window():
+            return window()[0]
     smi = chip_smoke.nvidia_smi()
     try:
         with policy_from_name("bfloat16"):
-            decode_window(code_window()[0])  # warm-up
+            decode_window(code_window())  # warm-up
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                bits, _ = code_window()
+                bits = code_window()
                 torch.cuda.synchronize()
                 t_enc = time.perf_counter() - t0
                 t0 = time.perf_counter()
@@ -107,7 +130,7 @@ def main() -> int:
         fams[family(e.key)] = fams.get(family(e.key), 0.0) + dev_us(e) / 1e3
     wall_ms = 1e3 * (t_enc + t_dec)
     print(json.dumps({
-        "card": smi, "codec": codec, "batch": batch, "b_frames": n_real,
+        "card": smi, "codec": codec, "batch": batch, "frames": n_real,
         "encode_wall_ms": 1e3 * t_enc,
         "decode_wall_ms": 1e3 * t_dec, "device_kernel_ms": total_ms,
         "device_busy_share": total_ms / wall_ms,

@@ -239,6 +239,23 @@ def test_deform_kernel_misaligned_input(cuda):
     assert float((out - ref).abs().max()) <= 2e-5
 
 
+def test_deform_kernel_misaligned_wide_input(cuda):
+    """x misaligned with 512 < C <= 2048 and C/G % 4 == 0: the kernel would
+    take one lane per channel, more than 512; the wrapper decides the lanes
+    as the kernel does, hands it an aligned copy, and returns a result."""
+    from tpuvc_torch.ops.deform import deform_kernel, deform_plain, lane_width
+
+    G, Cg = 16, 40  # C = 640
+    x, off, masks, weight, bias = (t.to(cuda) for t in _deform_inputs(1, 9, 37, G, Cg, 4, 3.0))
+    xm = _misaligned(x)
+    assert lane_width(Cg, xm.data_ptr()) == 1 and lane_width(Cg, x.data_ptr()) == 4
+    ref = deform_plain(x, off, masks, weight, bias, G)
+    out = deform_kernel(xm, off, masks, weight, bias, G)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 2e-5
+    assert torch.equal(out, deform_kernel(x, off, masks, weight, bias, G))
+
+
 def test_deform_kernel_repeat_launch_is_bit_identical(cuda):
     """Encoder and decoder run the same launch: it gives the same bits, at a
     v4-like width with offsets that leave the frame."""
@@ -333,3 +350,56 @@ def test_flowguided_round_trip_on_card(cuda, dtype):
     # 2 feature warps and 1 deform conv per pyramid level, on each side.
     assert warp_kernel.launches == 2 * 6
     assert deform_kernel.launches == 2 * 3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_elic_batch_round_trip_on_card(cuda, dtype):
+    """ELIC at full width (N=192, M=320), seeded weights, three 256x256
+    frames (a 2-GOP window's fresh anchors): decompress_batch equals the
+    encoder's synthesis bit for bit on the card."""
+    from tpuvc_torch.coder import parallel
+    from tpuvc_torch.models.elic import ELIC, ELICCoder
+    from tpuvc_torch.ops.precision import policy_from_name
+
+    coder = ELICCoder(ELIC(generator=torch.Generator().manual_seed(0)))
+    x = torch.cat(_frames((1, 256, 256, 3), seed=4)).to(cuda)
+    try:
+        with policy_from_name(dtype):
+            enc = coder.compress_batch(x)
+            dec = coder.decompress_batch(enc["strings"], enc["shape"])
+            assert torch.equal(dec, coder.synthesize(enc["y_hat"]))
+    finally:
+        parallel.shutdown()
+    assert enc["shape"] == (4, 4) and len(enc["strings"]) == 3
+
+
+@pytest.mark.parametrize("family", ["lhbdc", "flowguided_b"])
+def test_sequence_cli_round_trip_on_card(cuda, tmp_path, family):
+    """encode_v then decode_v with --device cuda at 128x128 (9 frames, GOP
+    4, small LHBDC and ELIC; FlowGuidedB at full width, its flow and offset
+    heads seeded): the decode equals the encoder's reconstructions, through
+    the kernels."""
+    import chip_smoke
+    from tpuvc_torch.cli import decode_v, encode_v
+    from tpuvc_torch.coder import parallel
+    from tpuvc_torch.ops.deform import deform_kernel
+    from tpuvc_torch.ops.warp import warp_kernel
+
+    model = ["--init", "random", "--N", "32", "--intra_N", "16", "--intra_M", "24",
+             "--intra_groups", "4,4,16", "--device", "cuda"]
+    mode = (["--level_batched", "--window_gops", "2", "--max_batch", "4"]
+            if family == "lhbdc" else ["--s", "1.0"])
+    bin_path = str(tmp_path / "seq.tpvb")
+    warp_kernel.launches = deform_kernel.launches = 0
+    try:
+        with chip_smoke.cli_heads_seeded():
+            enc = encode_v.main(["--synthetic", "9", "--width", "128", "--height", "128",
+                                 "--gop", "4", "--family", family, "--compute_dtype",
+                                 "bfloat16", "--bin", bin_path] + mode + model)
+            dec = decode_v.main(["--bin", bin_path, "--out_dir", str(tmp_path / "dec")] + model)
+    finally:
+        parallel.shutdown()
+    assert sorted(enc) == sorted(dec) == list(range(9))
+    assert all(torch.equal(enc[i], dec[i]) for i in enc)
+    assert warp_kernel.launches > 0
+    assert (deform_kernel.launches > 0) == (family == "flowguided_b")

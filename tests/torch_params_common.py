@@ -15,7 +15,8 @@ import numpy as np
 
 
 def _leaf(name: str, shape, rng):
-    if name in ("kernel", "weight"):  # HWIO kernels (DeformConv's is "weight")
+    if name in ("kernel", "weight") or name.endswith("_kernel"):
+        # HWIO kernels (DeformConv's is "weight", SPyNet's "conv{i}_kernel")
         return rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
     if name.startswith("matrix_"):
         return np.log(np.expm1(1.0 / 10 ** 0.2 / shape[1])) + 0.1 * rng.standard_normal(shape)
@@ -23,9 +24,13 @@ def _leaf(name: str, shape, rng):
         return 0.1 * rng.standard_normal(shape)
     if name == "quantiles":
         return np.array([-10.0, 0.0, 10.0]) + 0.1 * rng.standard_normal(shape)
+    if name == "beta":  # GDN, near its initialisation
+        return 1.0 + 0.1 * np.abs(rng.standard_normal(shape))
+    if name == "gamma":
+        return np.sqrt(0.1 * np.eye(shape[0])) + 0.01 * np.abs(rng.standard_normal(shape))
     if name.endswith("Gain"):
         return np.exp(0.2 * rng.standard_normal(shape))
-    if name.startswith("bias"):
+    if name.startswith("bias") or name.endswith("_bias"):
         return 0.02 * rng.standard_normal(shape)
     raise KeyError(f"no seeded fill for parameter {name}")
 
@@ -49,3 +54,24 @@ def filled_params(init_fn, seed: int = 0, scale: dict | None = None):
         return v.astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def write_sequence_checkpoints(wdir):
+    """Seeded LHBDC (N=32, rate 845) and ELIC (N=16, M=24, groups
+    (4, 4, 16)) checkpoints, written by tpuvc's save_checkpoint into
+    ``wdir`` as the CLIs' ``--init load`` reads them:
+    ``compression_845.msgpack`` and ``elic.msgpack``. Returns both trees."""
+    import jax.numpy as jnp
+
+    from tpuvc.models.elic import ELIC
+    from tpuvc.models.lhbdc import LHBDC
+    from tpuvc.utils.checkpoint import save_checkpoint
+
+    x = jnp.zeros((1, 64, 64, 3))
+    lhbdc = filled_params(lambda: LHBDC(N=32).init(jax.random.key(0), x, x, x, "dequantize"),
+                          seed=4, scale={"flownet": 0.1})
+    elic = filled_params(lambda: ELIC(N=16, M=24, groups=(4, 4, 16)).init(
+        jax.random.key(0), x, "dequantize"), seed=5)
+    save_checkpoint(str(wdir / "compression_845.msgpack"), lhbdc)
+    save_checkpoint(str(wdir / "elic.msgpack"), elic)
+    return lhbdc, elic

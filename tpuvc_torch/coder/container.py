@@ -1,6 +1,7 @@
-"""Binary containers for coded B-frames (the port's copies of tpuvc's
-``BFrameBitstream`` and ``VFrameBitstream``; byte layouts identical, so
-tpuvc parses port streams).
+"""Binary containers for coded frames and sequences (the port's copies of
+tpuvc's ``BFrameBitstream``, ``VFrameBitstream``, ``IFrameBitstream`` and
+``VSequenceBitstream``; byte layouts identical, so each package parses the
+other's files).
 
 ``BFrameBitstream`` is layout-compatible with the reference's B-frame container
 (LHBDC encode_B/decode_B):
@@ -142,4 +143,182 @@ class VFrameBitstream:
             scale2_centi=s2,
             z_shape=(zh, zw),
             streams=streams,
+        )
+
+
+@dataclass
+class IFrameBitstream:
+    """Coded intra frame: the ELIC stream set (10 group strings + z).
+
+    Wraps ELICCoder.compress's output so intra frames ride in the same
+    sequence files as inter frames.
+
+    Layout (little-endian):
+      uint16 zh | uint16 zw | uint8 n_streams | uint32 lengths[n] | bytes...
+    The z string is always the last stream.
+    """
+
+    z_shape: tuple[int, int]
+    streams: list = field(default_factory=list)
+
+    HEADER = "<HHB"
+
+    def serialize(self) -> bytes:
+        head = struct.pack(
+            self.HEADER, self.z_shape[0], self.z_shape[1], len(self.streams)
+        )
+        lens = struct.pack(
+            f"<{len(self.streams)}I", *[len(s) for s in self.streams]
+        )
+        return head + lens + b"".join(self.streams)
+
+    @classmethod
+    def deserialize(cls, blob: bytes) -> "IFrameBitstream":
+        hsize = struct.calcsize(cls.HEADER)
+        zh, zw, n = struct.unpack(cls.HEADER, blob[:hsize])
+        lens = struct.unpack(f"<{n}I", blob[hsize : hsize + 4 * n])
+        off = hsize + 4 * n
+        streams = []
+        for L in lens:
+            streams.append(blob[off : off + L])
+            off += L
+        return cls(z_shape=(zh, zw), streams=streams)
+
+    @classmethod
+    def from_compress(cls, out: dict) -> "IFrameBitstream":
+        """Wrap an ELICCoder.compress result dict."""
+        y_strings, z_string = out["strings"]
+        return cls(
+            z_shape=tuple(int(v) for v in out["shape"]),
+            streams=list(y_strings) + [z_string],
+        )
+
+    def to_strings(self):
+        """-> (y_strings, z_string) for ELICCoder.decompress."""
+        return list(self.streams[:-1]), self.streams[-1]
+
+
+B_FAMILY_IDS = {"lhbdc": 0, "flexrate": 1, "deform_b": 2, "flowguided_b": 3}
+B_FAMILY_NAMES = {v: k for k, v in B_FAMILY_IDS.items()}
+
+
+@dataclass
+class VSequenceBitstream:
+    """Whole hierarchically-coded sequence: ELIC I-frames + B-frames from
+    one of the four B codec families, the file exchanged by
+    ``tpuvc_torch.cli.encode_v`` / ``decode_v`` (and tpuvc's).
+
+    Frames ride in CODING order with their display index, so the decoder
+    replays the file order through the same DPB walk the encoder used: no
+    schedule side-channel.
+
+    ``mode`` records how device graphs were shaped during encoding:
+    0 = sequential (one frame per forward), 1 = level-batched with
+    ``max_batch`` frames per forward. The decoder must run the SAME batch
+    shapes: a B=1 and a B=4 convolution may sum in different orders, and
+    the decoder re-derives entropy parameters from reconstructed
+    references, so a shape mismatch would corrupt the rANS decode.
+
+    ``dtype`` (0=float32, 1=bfloat16 mixed precision) records the layer
+    compute policy active during encoding; the decoder runs under the same
+    policy, for the same reason.
+
+    ``mesh`` (>=1) records over how many devices the encoder's level
+    batches were sharded (tpuvc's ``--mesh``); the decoder must shard alike.
+    The port codes on one device (mesh=1).
+
+    Layout: b"TPV3" | uint8 family | uint16 width | uint16 height |
+    uint16 gop | uint16 n_frames | uint8 mode | uint8 max_batch |
+    uint8 dtype | uint8 window_gops | uint8 mesh | per frame in coding
+    order: uint8 type (0=I, 1=B) | uint16 display_idx | uint32 length |
+    blob. width/height are the unpadded display size. TPV2 streams (no
+    mesh field) still parse, with mesh=1.
+    """
+
+    family: str
+    width: int
+    height: int
+    gop: int
+    n_frames: int
+    frames: list = field(default_factory=list)  # [(type_str, idx, blob)]
+    mode: int = 0
+    max_batch: int = 0
+    dtype: int = 0
+    window_gops: int = 1
+    mesh: int = 1
+
+    MAGIC = b"TPV3"
+    HEADER = "<4sBHHHHBBBBB"
+    HEADER_V2 = "<4sBHHHHBBBB"
+
+    @property
+    def num_bytes(self) -> int:
+        return struct.calcsize(self.HEADER) + sum(
+            7 + len(b) for _, _, b in self.frames
+        )
+
+    def serialize(self) -> bytes:
+        if not 1 <= max(1, self.mesh) <= 255:
+            raise ValueError(
+                f"mesh={self.mesh} does not fit the uint8 header field "
+                "(1..255)"
+            )
+        out = [
+            struct.pack(
+                self.HEADER, self.MAGIC, B_FAMILY_IDS[self.family],
+                self.width, self.height, self.gop, self.n_frames,
+                self.mode, self.max_batch, self.dtype,
+                max(1, self.window_gops), max(1, self.mesh),
+            )
+        ]
+        for typ, idx, blob in self.frames:
+            out.append(
+                struct.pack("<BHI", 0 if typ == "I" else 1, idx, len(blob))
+            )
+            out.append(blob)
+        return b"".join(out)
+
+    @classmethod
+    def deserialize(cls, blob: bytes) -> "VSequenceBitstream":
+        if blob[:4] == b"TPV2":  # pre-mesh header, mesh=1
+            hsize = struct.calcsize(cls.HEADER_V2)
+            magic, fam, w, h, gop, n, mode, mb, dtype, wg = struct.unpack(
+                cls.HEADER_V2, blob[:hsize]
+            )
+            mesh = 1
+        else:
+            hsize = struct.calcsize(cls.HEADER)
+            magic, fam, w, h, gop, n, mode, mb, dtype, wg, mesh = (
+                struct.unpack(cls.HEADER, blob[:hsize])
+            )
+            if magic != cls.MAGIC:
+                if magic == b"TPV1":
+                    raise ValueError(
+                        "TPV1 stream from an older tpuvc build (no dtype "
+                        "field); re-encode with this version"
+                    )
+                raise ValueError(f"bad sequence magic: {magic!r}")
+        off = hsize
+        frames = []
+        for k in range(n):
+            if off + 7 > len(blob):
+                raise ValueError(
+                    f"truncated sequence: record {k}/{n} header past EOF"
+                )
+            t, idx, L = struct.unpack("<BHI", blob[off : off + 7])
+            off += 7
+            if off + L > len(blob):
+                raise ValueError(
+                    f"truncated sequence: frame {idx} blob past EOF"
+                )
+            frames.append(
+                ("I" if t == 0 else "B", idx, blob[off : off + L])
+            )
+            off += L
+        if off != len(blob):
+            raise ValueError(f"{len(blob) - off} trailing bytes")
+        return cls(
+            family=B_FAMILY_NAMES[fam], width=w, height=h, gop=gop,
+            n_frames=n, frames=frames, mode=mode, max_batch=mb, dtype=dtype,
+            window_gops=max(1, wg), mesh=max(1, mesh),
         )

@@ -1,9 +1,11 @@
-"""Hierarchical GOP coding orders (the port's copy of tpuvc.gop.order's
-tables).
+"""Hierarchical GOP coding orders and whole-sequence schedules (the port's
+copy of tpuvc.gop.order).
 
 A GOP's dyadic order is exposed level by level (``frames_by_level``): frames
 within one hierarchy level do not depend on each other, which is the
-batching axis of level-batched coding.
+batching axis of level-batched coding. ``sequence_schedule`` gives a whole
+sequence's coding order and frame types from (gop, n_frames) alone, so the
+sequence coders never transmit it.
 """
 
 from __future__ import annotations
@@ -70,3 +72,81 @@ def gop_coding_table(gop: int) -> GopTable:
         spans.append((a, mid, lv + 1))
         spans.append((mid, b, lv + 1))
     return GopTable(gop, order, refs, level)
+
+
+def sequence_order_from_table(gop: int, frame_number: int):
+    """Sequence coding order built by tiling a static GOP table: I every
+    ``gop`` frames, dyadic B order inside each GOP, a trailing partial GOP
+    coded I-then-sequential.
+
+    Returns (order list, type list) like get_order_typ_list.
+    """
+    table = gop_coding_table(gop)
+    typ = ["B"] * frame_number
+    order: list[int] = []
+    seen = set()
+    for start in range(0, frame_number - 1, gop):
+        end = start + gop
+        if end >= frame_number:
+            break
+        for f in table.order:
+            idx = start + f
+            if idx not in seen:
+                order.append(idx)
+                seen.add(idx)
+        typ[start] = "I"
+        typ[end] = "I"
+    # Trailing frames that never closed a GOP: force final I, then remaining
+    # frames rely on nearest-reference selection.
+    for idx in range(frame_number):
+        if idx not in seen:
+            order.append(idx)
+            seen.add(idx)
+    typ[0] = "I"
+    typ[-1] = "I"
+    return order, typ
+
+
+def get_order_typ_list(intra_size: int, frame_number: int):
+    """Sequence-level coding order + frame types.
+
+    Includes:
+      - the dyadic base order tiled across the sequence,
+      - I-frames every ``intra_size`` plus a forced final I,
+      - the tail rewrites for 300- and 600-frame sequences.
+    """
+    # The dyadic base order is GOP-16-specific; other GOPs use the static
+    # tables via gop_coding_table.
+    assert intra_size == 16, "get_order_typ_list assumes a 16-frame base order"
+    order = [16, 8, 4, 12, 2, 14, 6, 10, 1, 15, 3, 13, 5, 11, 7, 9]
+    o = [0]
+    lll = len(order)
+    ff = (frame_number - 1) % intra_size
+    for i in range(frame_number - 1):
+        o.append(order[i % lll] + (i // lll) * lll)
+    if ff != 0:
+        m = max(o[:-ff])
+        o[-ff:] = [(m + ff - i) for i in range(ff)]
+
+    typ = ["I" if i % intra_size == 0 else "B" for i in range(frame_number)]
+    typ[-1] = "I"
+
+    if frame_number == 300:
+        o[-11:] = [299, 293, 290, 296, 289, 291, 292, 294, 295, 297, 298]
+    if frame_number == 600:
+        o[-7:] = [599, 595, 593, 597, 594, 596, 598]
+    return o, typ
+
+
+def sequence_schedule(gop: int, frame_number: int):
+    """Header-derivable whole-sequence schedule for the V-sequence coder.
+
+    GOP 16 uses the algorithmic dyadic order with its tail patches
+    (get_order_typ_list); other GOP sizes tile the static dyadic tables
+    (sequence_order_from_table). Both sides of the codec call this with
+    the (gop, n_frames) pair from the VSequenceBitstream header, so the
+    coding order is never transmitted.
+    """
+    if gop == 16:
+        return get_order_typ_list(16, frame_number)
+    return sequence_order_from_table(gop, frame_number)

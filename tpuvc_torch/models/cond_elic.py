@@ -15,7 +15,8 @@ tpuvc.models.cond_elic).
 
 ``CondELICCoder`` codes real streams: two-phase checkerboard group coding
 with per-sample streams for level-batched coding, host rANS on worker
-threads.
+threads. ``GroupCoder`` holds what it shares with the intra coder
+(tpuvc_torch.models.elic.ELICCoder).
 """
 
 from __future__ import annotations
@@ -304,19 +305,19 @@ def _phase_index(h: int, w: int, device):
     )
 
 
-class CondELICCoder:
-    """Real-bitstream compress/decompress of a CondELIC bottleneck.
+class GroupCoder:
+    """What the ELIC-style coders share: the z and y coding tables, the host
+    rANS calls, and the two-phase checkerboard coding of one channel group.
 
-    z is coded in the gained domain around the factorized prior's medians;
-    each y group in two checkerboard phases around its conditional means.
-    Encoder and decoder run the same module functions at the same batch
-    shapes under the same dtype policy, so with deterministic kernels
-    (tpuvc_torch.ops.precision.set_deterministic) they compute the same
-    entropy parameters, which the rANS decode needs.
+    ``module`` provides ``N``, ``groups``, ``entropy_bottleneck`` and
+    ``group_params(i, hyper, prev_groups_hat, y_anchor_hat)``, and sits on
+    the device the coder runs on. Encoder and decoder run the same module
+    functions at the same batch shapes under the same dtype policy, so with
+    deterministic kernels (tpuvc_torch.ops.precision.set_deterministic) they
+    compute the same entropy parameters, which the rANS decode needs.
     """
 
-    def __init__(self, module: CondELIC):
-        """``module`` sits on the device the coder runs on."""
+    def __init__(self, module: nn.Module):
         self.module = module
         self.device = next(module.parameters()).device
         self.z_tables = FactorizedTables.from_module(module.entropy_bottleneck)
@@ -431,6 +432,36 @@ class CondELICCoder:
         z_hat = torch.from_numpy(z_sym.astype(np.float32)).to(self.device) + self.z_medians
         return z_hat, z_string, shape
 
+    def _code_z_per_sample(self, z):
+        """One z stream per sample, coded on a worker: -> (z_hat, future of
+        the per-sample strings). z_hat continues from the device's own
+        symbols, which equal the decoder's uploads."""
+        from tpuvc_torch.coder.parallel import async_pool, parallel_map
+
+        z_sym_dev = quantize(z, "symbols16", means=self.z_medians)
+
+        def z_job():
+            z_sym = z_sym_dev.cpu().numpy()
+            return parallel_map(lambda j: self._enc_z(z_sym[j]), range(len(z_sym)))
+
+        return z_sym_dev.float() + self.z_medians, async_pool().submit(z_job)
+
+    def _dec_z_per_sample(self, z_strings, z_shape):
+        """Inverse of _code_z_per_sample: the batch's z_hat."""
+        from tpuvc_torch.coder.parallel import parallel_map
+
+        zh, zw = z_shape
+        z_sym = np.stack(parallel_map(
+            lambda zs: self._dec_z(zs, (zh, zw, self.module.N)), z_strings
+        ))
+        return torch.from_numpy(z_sym.astype(np.float32)).to(self.device) + self.z_medians
+
+
+class CondELICCoder(GroupCoder):
+    """Real-bitstream compress/decompress of a CondELIC bottleneck: z in the
+    gained domain around the factorized prior's medians, each y group in two
+    checkerboard phases around its conditional means."""
+
     @torch.no_grad()
     def compress(self, inputs, conds, temporal_cond, s, x_pixel=None):
         """-> {streams: [z, a0, n0, a1, n1, ...], z_shape, outs}: the whole
@@ -458,19 +489,11 @@ class CondELICCoder:
 
         -> {"streams_resolve", "z_shape", "outs"}.
         """
-        from tpuvc_torch.coder.parallel import async_pool, parallel_map
-
         m = self.module
         y, z = m.analysis(*inputs, s, x_pixel=x_pixel)
         b = z.shape[0]
-        z_sym_dev = quantize(z, "symbols16", means=self.z_medians)
-
-        def z_job():
-            z_sym = z_sym_dev.cpu().numpy()
-            return parallel_map(lambda j: self._enc_z(z_sym[j]), range(b))
-
-        z_fut = async_pool().submit(z_job)
-        hyper = m.hyper_params(z_sym_dev.float() + self.z_medians, temporal_cond, s)
+        z_hat, z_fut = self._code_z_per_sample(z)
+        hyper = m.hyper_params(z_hat, temporal_cond, s)
         group_futs, groups_hat = [], []
         for i, curr_y in enumerate(torch.split(y, m.groups, dim=-1)):
             g_hat, futs = self._code_group(
@@ -503,14 +526,8 @@ class CondELICCoder:
     def decompress_batch(self, per_frame_streams, z_shape, conds, temporal_cond, s):
         """Inverse of compress_batch: per-frame stream lists in, batched
         synthesis out (the encoder's batch shapes)."""
-        from tpuvc_torch.coder.parallel import parallel_map
-
         m = self.module
-        zh, zw = z_shape
-        z_sym = np.stack(parallel_map(
-            lambda f: self._dec_z(f[0], (zh, zw, m.N)), per_frame_streams
-        ))
-        z_hat = torch.from_numpy(z_sym.astype(np.float32)).to(self.device) + self.z_medians
+        z_hat = self._dec_z_per_sample([f[0] for f in per_frame_streams], z_shape)
         hyper = m.hyper_params(z_hat, temporal_cond, s)
         groups_hat = []
         for i in range(len(m.groups)):

@@ -232,6 +232,39 @@ class ResidualBlockUpsample(nn.Module):
         return out + self.SubpelConv_1(x)
 
 
+class ResidualUnit(nn.Module):
+    """1x1 C/2 -> relu -> 3x3 C/2 -> relu -> 1x1 C, + identity, -> relu."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.Conv_0 = conv1x1(features, features // 2)
+        self.Conv_1 = conv3x3(features // 2, features // 2)
+        self.Conv_2 = conv1x1(features // 2, features)
+
+    def forward(self, x):
+        out = F.relu(self.Conv_0(x))
+        out = F.relu(self.Conv_1(out))
+        return F.relu(self.Conv_2(out) + x)
+
+
+class AttentionBlock(nn.Module):
+    """Cheng2020 attention: x + trunk(x) * sigmoid(gate(x)); the trunk is
+    ResidualUnit_0..2, the gate ResidualUnit_3..5 and a 1x1 Conv_0."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        for i in range(6):
+            setattr(self, f"ResidualUnit_{i}", ResidualUnit(features))
+        self.Conv_0 = conv1x1(features, features)
+
+    def forward(self, x):
+        a = b = x
+        for i in range(3):
+            a = getattr(self, f"ResidualUnit_{i}")(a)
+            b = getattr(self, f"ResidualUnit_{i + 3}")(b)
+        return x + a * torch.sigmoid(self.Conv_0(b))
+
+
 class ResidualBottleneckBlock(nn.Module):
     """ELIC building block: 1x1 -> relu -> 3x3 -> relu -> 1x1, + identity,
     at full width throughout."""

@@ -143,6 +143,13 @@ def build_kernel() -> None:
     _get_lib()
 
 
+def lane_width(Cg: int, x_ptr: int) -> int:
+    """Channels per lane, as the kernel picks them (csrc/deform.cu,
+    ``tpuvc_deform_conv_nhwc``): float4 quads where the group width divides
+    by 4 and x starts on a 16-byte boundary, else one channel."""
+    return 4 if Cg % 4 == 0 and x_ptr % 16 == 0 else 1
+
+
 def deform_kernel(x, offsets, masks, weight, bias, groups: int,
                   kernel: int = 3) -> torch.Tensor:
     """Launch the CUDA deform kernel (arguments as :func:`deform_plain`;
@@ -167,10 +174,16 @@ def deform_kernel(x, offsets, masks, weight, bias, groups: int,
         raise ValueError(f"deform_kernel: bias {tuple(bias.shape)} != {(C_out,)}")
     if max(x.numel(), offsets.numel(), B * H * W * C_out) >= 2**31:
         raise ValueError(f"deform_kernel indexes in int32; {tuple(offsets.shape)} is too large")
-    if C // (4 if Cg % 4 == 0 else 1) > 512:
+    x, offsets, masks = x.contiguous(), offsets.contiguous(), masks.contiguous()
+    lanes = C // lane_width(Cg, x.data_ptr())
+    if lanes > 512 and Cg % 4 == 0:
+        # Only a misaligned x gets here (a view into a larger buffer): a
+        # fresh copy is aligned and takes the float4 lanes.
+        x = x.clone()
+        lanes = C // lane_width(Cg, x.data_ptr())
+    if lanes > 512:
         raise ValueError(f"deform_kernel takes at most 512 lanes (C/4, or C where "
                          f"C/G % 4 != 0) a pixel; C={C}, groups={G}")
-    x, offsets, masks = x.contiguous(), offsets.contiguous(), masks.contiguous()
     # (C_out, Cg, K, K) -> (T, Cg, C_out): per tap and group channel, the
     # outputs of every group side by side
     w_t = weight.reshape(C_out, Cg, K * K).permute(2, 1, 0).contiguous()

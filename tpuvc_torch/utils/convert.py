@@ -3,9 +3,10 @@
 The port names its submodules as tpuvc's flax modules are named, so a flax
 parameter path becomes a state-dict key by joining it with dots, except:
 
-- flax module lists ``g_a_layers_3`` (and CondELIC's ``g_s3_blocks``,
-  ``prior_fusion_blocks``, ``entropy_parameters``, ``channel_context_models``
-  and ``context_prediction_models``) are ``nn.ModuleList`` entries
+- flax module lists ``g_a_layers_3`` (and ELIC's ``h_a_layers`` and
+  ``h_s_layers``, CondELIC's ``g_s3_blocks`` and ``prior_fusion_blocks``,
+  and both codecs' ``entropy_parameters``, ``channel_context_models`` and
+  ``context_prediction_models``) are ``nn.ModuleList`` entries
   ``g_a_layers.3`` here;
 - conv kernels are HWIO in flax and OIHW here (``kernel`` -> ``weight``);
   a ``DeformConv``'s HWIO kernel is named ``weight`` in flax too;
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 _LISTS = (
-    "g_a_layers", "g_s_layers", "h_a_convs",
+    "g_a_layers", "g_s_layers", "h_a_convs", "h_a_layers", "h_s_layers",
     "g_s3_blocks", "prior_fusion_blocks", "entropy_parameters",
     "channel_context_models", "context_prediction_models",
 )
