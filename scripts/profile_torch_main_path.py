@@ -2,19 +2,26 @@
 
 Run from the repository root:
 
-    python3 scripts/profile_torch_main_path.py [--family lhbdc|flowguided_b|elic]
+    python3 scripts/profile_torch_main_path.py [--family lhbdc|flowguided_b|elic|eval_lhbdc|eval_flowguided_b]
 
 Codes chip_smoke.py's window (1088x1920, GOP-16, 2 GOPs, bfloat16 policy,
 seeded weights) for one codec family: LHBDC(N=128) at batch 4 (the
 default), or FlowGuidedB at full width at batch 2 (chip_smoke.py's v4
 path); or, with ``elic``, the window's three intra anchors (frames 0, 16,
 32 of encode_v's synthetic sequence) through ELIC (N=192, M=320) at batch
-3, as encode_v's --level_batched codes them. It codes once to warm up,
-then encodes and decodes again under torch.profiler. Prints JSON lines: the wall time of
-each side, the summed device time of all kernels and its share of the wall
-time (the device's busy share; one stream, so kernels do not overlap), the
-device time by kernel family, and the 25 kernels with the most device time;
-every kernel's row goes to outputs/profile_<family>.json (ignored by git).
+3, as encode_v's --level_batched codes them; or, with ``eval_lhbdc`` /
+``eval_flowguided_b``, the RD-eval CLI's level loop on chip_smoke.py's
+eval_cli configurations (17 frames; LHBDC level-batched at batch cap 8 in
+bfloat16, FlowGuidedB sequential with the down-ratio search and MS-SSIM in
+float32), models built before the timed runs; the eval has no decode side,
+so its "encode" is the eval and its "decode" is empty. It codes once to
+warm up, then encodes and decodes again under torch.profiler, with the
+determinism settings every CLI uses (TF32 off). Prints JSON lines: the
+wall time of each side, the summed device time of all kernels and its
+share of the wall time (the device's busy share; one stream, so kernels do
+not overlap), the device time by kernel family, and the 25 kernels with
+the most device time; every kernel's row goes to
+outputs/profile_<family>.json (ignored by git).
 """
 
 from __future__ import annotations
@@ -57,15 +64,42 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--family", choices=("lhbdc", "flowguided_b", "elic"),
-                        default="lhbdc")
+    parser.add_argument("--family", default="lhbdc", choices=(
+        "lhbdc", "flowguided_b", "elic", "eval_lhbdc", "eval_flowguided_b"))
     codec = parser.parse_args().family
     sys.path.insert(0, ROOT)
+    import bench_torch
     import chip_smoke
     from tpuvc_torch.coder import parallel
-    from tpuvc_torch.ops.precision import policy_from_name
+    from tpuvc_torch.ops.precision import policy_from_name, set_deterministic
 
-    if codec == "elic":
+    set_deterministic()  # as every CLI and coder does: TF32 off, fixed algorithms
+
+    dtype = "bfloat16"
+    if codec.startswith("eval_"):
+        import contextlib
+        import io
+
+        from tpuvc_torch.cli import test as eval_cli
+        from tpuvc_torch.config import TestConfig, apply_overrides
+        from tpuvc_torch.eval.infographic import TestInfographic
+
+        cfg = apply_overrides(TestConfig(), chip_smoke.eval_overrides(
+            codec[len("eval_"):], os.path.join(ROOT, "outputs")))
+        with chip_smoke.cli_heads_seeded():
+            intra, model = eval_cli.build_models(cfg)
+        intra, model = intra.cuda().eval(), model.cuda().eval()
+        batch = cfg.max_batch if cfg.level_batched else 1
+        n_real, dtype = sum(cfg.dataset.sequences.values()), cfg.compute_dtype
+
+        def code_window():
+            with contextlib.redirect_stdout(io.StringIO()):
+                return eval_cli._run_levels(cfg, intra, model, TestInfographic(),
+                                            torch.device("cuda"))
+
+        def decode_window(_):
+            return None
+    elif codec == "elic":
         from tpuvc_torch.data.uvg import SyntheticSequence, device_frame
         from tpuvc_torch.models.elic import ELIC, ELICCoder
 
@@ -92,15 +126,15 @@ def main() -> int:
 
             coder = FlowGuidedBCoder(chip_smoke.v4_model(torch))
             batch = 2
-        window, decode_window, _, n_real = chip_smoke.bench_window(
+        window, decode_window, _, n_real = bench_torch.bench_window(
             torch, coder, B=batch, family=codec
         )
 
         def code_window():
             return window()[0]
-    smi = chip_smoke.nvidia_smi()
+    smi = bench_torch.nvidia_smi()
     try:
-        with policy_from_name("bfloat16"):
+        with policy_from_name(dtype):
             decode_window(code_window())  # warm-up
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -130,7 +164,7 @@ def main() -> int:
         fams[family(e.key)] = fams.get(family(e.key), 0.0) + dev_us(e) / 1e3
     wall_ms = 1e3 * (t_enc + t_dec)
     print(json.dumps({
-        "card": smi, "codec": codec, "batch": batch, "frames": n_real,
+        "card": smi, "codec": codec, "batch": batch, "frames": n_real, "compute_dtype": dtype,
         "encode_wall_ms": 1e3 * t_enc,
         "decode_wall_ms": 1e3 * t_dec, "device_kernel_ms": total_ms,
         "device_busy_share": total_ms / wall_ms,

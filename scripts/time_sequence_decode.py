@@ -66,6 +66,7 @@ def frame_timer(torch, log: list):
 def main() -> int:
     import torch
 
+    import bench_torch
     import chip_smoke
     from tpuvc_torch.cli import decode_v, encode_v
     from tpuvc_torch.coder import parallel
@@ -84,7 +85,7 @@ def main() -> int:
                    if a in shared or (i and enc_args[i - 1] in shared)]
     heads = chip_smoke.cli_heads_seeded if args.heads == "seeded" else contextlib.nullcontext
     if torch.cuda.is_available():
-        print(chip_smoke.nvidia_smi(), flush=True)
+        print(bench_torch.nvidia_smi(), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         bin_path = os.path.join(tmp, "seq.tpvb")
         try:

@@ -403,3 +403,53 @@ def test_sequence_cli_round_trip_on_card(cuda, tmp_path, family):
     assert all(torch.equal(enc[i], dec[i]) for i in enc)
     assert warp_kernel.launches > 0
     assert (deform_kernel.launches > 0) == (family == "flowguided_b")
+
+
+@pytest.mark.parametrize("compat, shape", [
+    ("exact", (1, 1088, 1920, 3)),  # the down-ratio search's flow-only predictions
+    ("lhbdc", (32, 34, 60, 3)),     # SPyNet's coarsest level in the batch-8 eval forward
+])
+def test_warp_kernel_at_the_eval_shapes(cuda, compat, shape):
+    from tpuvc_torch.ops.warp import warp, warp_plain
+
+    img, flow = (t.to(cuda) for t in _inputs(shape, seed=7))
+    out = warp(img, flow, compat)
+    ref = warp_plain(img, flow, compat)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("down_ratio", [2, 4])
+def test_flowguided_down_ratio_round_trip_on_card(cuda, down_ratio):
+    """FlowGuidedB (small, heads seeded) coded at a down ratio above 1 at
+    128x128 on the card: the stream carries the ratio and decodes to the
+    encoder's reconstruction bit for bit."""
+    from tpuvc_torch.coder import parallel
+    from tpuvc_torch.coder.container import VFrameBitstream
+    from tpuvc_torch.models.flowguided_b import FlowGuidedBCoder
+
+    coder = FlowGuidedBCoder(_v4_model())
+    x1, xc, x2 = (t.to(cuda) for t in _frames((1, 128, 128, 3), seed=5))
+    try:
+        bits, x_hat = coder.encode_recon(x1, x2, xc, 1.0, 0.5, 0.5, down_ratio=down_ratio)
+        parsed = VFrameBitstream.deserialize(bits.serialize())
+        dec = coder.decode(x1, x2, parsed)
+    finally:
+        parallel.shutdown()
+    assert parsed.down_ratio == down_ratio
+    assert torch.equal(dec, x_hat)
+
+
+def test_msssim_card_matches_cpu(cuda):
+    """MS-SSIM at 192x192 (float32, TF32 off): the card's depthwise blur
+    convolutions agree with the CPU's within 1e-5."""
+    from tpuvc_torch.eval.metrics import msssim
+
+    rng = np.random.default_rng(11)
+    a = rng.random((1, 192, 192, 3), dtype=np.float32)
+    b = np.clip(a + 0.1 * rng.standard_normal(a.shape), 0, 1).astype(np.float32)
+    a, b = torch.from_numpy(a), torch.from_numpy(b)
+    ref = float(msssim(a, b))
+    out = float(msssim(a.to(cuda), b.to(cuda)))
+    assert 0.0 < ref < 1.0
+    assert abs(out - ref) <= 1e-5

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_params_common import V4_KW as KW
 from torch_params_common import filled_params
 from tpuvc.coder.container import VFrameBitstream as JVFrame
 from tpuvc.models import flowguided_b as jf
@@ -31,7 +32,6 @@ from tpuvc_torch.utils.convert import params_from_jax
 
 torch.set_num_threads(1)
 
-KW = dict(feature_channels=(16, 32, 48), N=32, M=32, levels=3, groups=(4, 4, 8, 16))
 HEADS = {  # seeded heads: flows of ~1 px, offsets of a few px around them
     "params/flow_estimator/SubpelConv_3": 1.0,
     **{f"params/offset_compressor/g_o{i}/Conv_1": 0.05 for i in (1, 2, 3)},
@@ -183,11 +183,12 @@ def test_single_stream_round_trip_is_bit_exact(coder):
 
 
 def test_gop_window_round_trip_is_bit_exact(coder):
-    """chip_smoke.py's v4 window at a small size: 2 GOPs of GOP-4 at batch
-    2, temporal scales per chunk, decoded chunk by chunk."""
-    import chip_smoke
+    """chip_smoke.py's v4 window (bench_torch.bench_window) at a small size:
+    2 GOPs of GOP-4 at batch 2, temporal scales per chunk, decoded chunk by
+    chunk."""
+    import bench_torch
 
-    code_window, decode_window, slot, n_real = chip_smoke.bench_window(
+    code_window, decode_window, slot, n_real = bench_torch.bench_window(
         torch, coder, h=64, w=64, gop=4, G=2, B=2, family="flowguided_b"
     )
     with policy_from_name("bfloat16"):

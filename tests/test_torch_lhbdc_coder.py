@@ -72,12 +72,13 @@ def test_single_frame_round_trip(coder, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gop_window_level_batched_round_trip(coder, dtype):
-    """chip_smoke.py's window at a small size: 2 GOPs of GOP-4 at batch 2,
-    encoded level by level with async host phases, then decoded with the
-    streams submitted ahead of the reference-dependent device tails."""
-    import chip_smoke
+    """chip_smoke.py's window (bench_torch.bench_window) at a small size: 2
+    GOPs of GOP-4 at batch 2, encoded level by level with async host
+    phases, then decoded with the streams submitted ahead of the
+    reference-dependent device tails."""
+    import bench_torch
 
-    code_window, decode_window, slot, n_real = chip_smoke.bench_window(
+    code_window, decode_window, slot, n_real = bench_torch.bench_window(
         torch, coder, h=64, w=64, gop=4, G=2, B=2
     )
     with policy_from_name(dtype):

@@ -51,7 +51,7 @@ def _imports(path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_static_scan_finds_no_forbidden_import(path):
@@ -103,6 +103,17 @@ def test_deform_on_a_non_cpu_tensor_never_runs_the_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         deform.deform_kernel(cpu[0], cpu[1], torch.zeros((1, 8, 8, 18)), cpu[2],
                              torch.zeros(6), 2)
+
+
+def test_bench_torch_defaults_to_cuda_without_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "bench_torch.py")], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert "metric" not in out.stdout
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -246,7 +246,7 @@ def test_encode_decode_b_round_trip_on_real_frames(tmp_path):
 @pytest.mark.parametrize("argv, match", [
     (["--family", "flexrate"], "A11"),
     (["--family", "deform_b"], "A12"),
-    (["--family", "flowguided_b", "--adaptive"], "A13"),
+    (["--family", "flowguided_b", "--adaptive", "--level_batched"], "sequential mode"),
     (["--level_batched", "--mesh", "2"], "A16"),
 ])
 def test_unported_options_exit_with_their_roadmap_item(tmp_path, argv, match):

@@ -75,3 +75,50 @@ def write_sequence_checkpoints(wdir):
     save_checkpoint(str(wdir / "compression_845.msgpack"), lhbdc)
     save_checkpoint(str(wdir / "elic.msgpack"), elic)
     return lhbdc, elic
+
+
+#: FlowGuidedB at tests/test_flowguided.py's narrow widths.
+V4_KW = dict(feature_channels=(16, 32, 48), N=32, M=32, levels=3, groups=(4, 4, 8, 16))
+
+
+def v4_constant_flow_params(seed: int = 0, flow: float = 1.0):
+    """Seeded narrow FlowGuidedB parameters whose FlowNET emits a nearly
+    constant horizontal flow pair: its last subpel conv's kernel is scaled
+    down to 0.02 and its bias set to (-flow, 0, +flow, 0) per flow channel
+    (each repeated over the 2x2 sub-pixels), the offset heads seeded small.
+    At down ratio r the flow-only prediction then shifts each reference by
+    about 2 * flow * r px (times the temporal scale), so the down-ratio
+    search's candidates differ clearly from each other. Returns (flax
+    module, variables)."""
+    import jax.numpy as jnp
+
+    from tpuvc.models.flowguided_b import FlowGuidedB
+
+    model = FlowGuidedB(**V4_KW)
+    x = jnp.zeros((1, 64, 64, 3))
+    v = filled_params(
+        lambda: model.init(jax.random.key(0), x, x, x, 1, 0.5, -0.5, 1, "dequantize"),
+        seed=seed,
+        scale={"params/flow_estimator/SubpelConv_3": 0.02,
+               **{f"params/offset_compressor/g_o{i}/Conv_1": 0.05 for i in (1, 2, 3)}},
+    )
+    head = v["params"]["flow_estimator"]["SubpelConv_3"]["Conv_0"]
+    head["bias"] = np.repeat(np.array([-flow, 0.0, flow, 0.0], np.float32), 4)
+    return model, v
+
+
+def translating_frames(n: int, h: int, w: int, px_per_frame: int = 2, seed: int = 0):
+    """n uint8 (h, w, 3) frames of one band-limited random texture moving
+    right by ``px_per_frame`` a frame (crops of a wider canvas, no wrap)."""
+    rng = np.random.default_rng(seed)
+    width = w + px_per_frame * n
+    f = np.fft.fft2(rng.standard_normal((h, width, 3)), axes=(0, 1))
+    ky, kx = np.fft.fftfreq(h)[:, None], np.fft.fftfreq(width)[None]
+    f *= np.exp(-(kx**2 + ky**2) * (2 * np.pi * 1.5) ** 2 / 2)[..., None]
+    t = np.real(np.fft.ifft2(f, axes=(0, 1)))
+    t = (t - t.min()) / (t.max() - t.min())
+    x0 = px_per_frame * n
+    return [
+        np.rint(255 * t[:, x0 - px_per_frame * i : x0 - px_per_frame * i + w]).astype(np.uint8)
+        for i in range(n)
+    ]

@@ -49,7 +49,9 @@ def build_parser():
     p.add_argument("--down_ratio", type=int, default=1,
                    help="v4 motion downsampling ratio")
     p.add_argument("--adaptive", action="store_true",
-                   help="v4 per-frame down-ratio search (not ported yet)")
+                   help="v4 per-frame down-ratio search (argmax PSNR of the "
+                        "flow-only prediction over {1,2,4,8,16}); the ratio "
+                        "is recorded in each frame's stream")
     p.add_argument("--level_batched", action="store_true",
                    help="code frames of the same hierarchy level in one "
                         "batched forward (the stream records the mode; "
@@ -83,9 +85,6 @@ def build_parser():
 
 def check_unported(args) -> None:
     """Exit on the options whose tpuvc code paths are not ported yet."""
-    if args.adaptive:
-        raise SystemExit("--adaptive is not ported to tpuvc_torch yet: "
-                         "ROADMAP.md queue A, A13 rest (gop/adaptive.py)")
     if args.mesh > 1:
         raise SystemExit("--mesh > 1 is not ported to tpuvc_torch yet: "
                          "ROADMAP.md queue A, A16 (parallel/mesh.py)")
@@ -151,8 +150,20 @@ def code_b_frame(coder, family, args, ref1, ref2, xcur, idx, o1, o2):
     from tpuvc_torch.models.flowguided_b import get_scales
 
     s1, s2 = get_scales(idx, o1, o2)
+    ratio = args.down_ratio
+    if args.adaptive:
+        import torch
+
+        from tpuvc_torch.gop.adaptive import best_down_ratio_prediction
+
+        model = coder.model
+        with torch.no_grad():
+            ratio, _ = best_down_ratio_prediction(
+                lambda r: model.prediction_flowonly(ref1, ref2, s1, s2, r), xcur
+            )
+        print(f"  frame {idx}: down_ratio {ratio}")
     return coder.encode_recon(
-        ref1, ref2, xcur, s=args.s, scale1=s1, scale2=s2, down_ratio=args.down_ratio,
+        ref1, ref2, xcur, s=args.s, scale1=s1, scale2=s2, down_ratio=ratio,
     )
 
 
@@ -288,6 +299,11 @@ def main(argv=None):
 
     check_family(args.family)
     check_unported(args)
+    if args.level_batched and args.adaptive:
+        raise SystemExit(
+            "--adaptive needs the sequential mode (the per-frame ratio "
+            "search breaks level batching); drop one flag"
+        )
     device = resolve_device(args.device)
     set_deterministic()
     frames = load_frames(args)
