@@ -69,10 +69,11 @@ def bench_window(torch, coder, h=1088, w=1920, gop=16, G=2, B=4, family="lhbdc")
     """bench.py's window on the port: a G-GOP window of GOP-``gop`` frames
     from a seed, B-frames between source anchors, every hierarchy level cut
     into batch-B chunks (the last chunk of a level padded by repetition).
-    ``family`` "lhbdc" codes each chunk at rate 845 and decodes with the
-    streams submitted ahead; "flowguided_b" codes at s=1.0 with the chunk's
-    temporal scales and down_ratio 1 (scripts/bench_families.py's v4
-    window) and decodes chunk by chunk.
+    ``family`` "lhbdc" codes each chunk at rate 845 and "flexrate" at
+    (n, l) = (1, 1.0), both decoding with the streams submitted ahead;
+    "flowguided_b" codes at s=1.0 with the chunk's temporal scales and
+    down_ratio 1 (scripts/bench_families.py's v4 window) and "deform_b" at
+    s=1.0, both decoding chunk by chunk.
     Returns (code_window, decode_window, slot, n_real): code_window() ->
     (streams, reconstructions) by frame index; decode_window(streams) ->
     reconstructions; slot[f] is source frame f."""
@@ -107,6 +108,10 @@ def bench_window(torch, coder, h=1088, w=1920, gop=16, G=2, B=4, family="lhbdc")
     def encode(xb, xc, xa, f0):
         if family == "lhbdc":
             return coder.encode_level_batch_async(xb, xc, xa, rate_id=845)
+        if family == "flexrate":
+            return coder.encode_level_batch_async(xb, xc, xa, n=1, l=1.0)
+        if family == "deform_b":
+            return coder.encode_level_batch_async(xb, xa, xc, s=1.0)
         s1, s2 = get_scales(f0, *refs_of(f0))
         return coder.encode_level_batch_async(
             xb, xa, xc, s=1.0, scale1=s1, scale2=s2, down_ratio=1
@@ -141,7 +146,7 @@ def bench_window(torch, coder, h=1088, w=1920, gop=16, G=2, B=4, family="lhbdc")
             refs = [refs_of(f) for f in chunk]
             xb = torch.cat([decoded[a] for a, _ in refs])
             xa = torch.cat([decoded[b] for _, b in refs])
-            if family != "lhbdc":
+            if not hasattr(coder, "decode_level_batch_async"):
                 x_hat = coder.decode_level_batch(xb, xa, [reparse(bits[f]) for f in chunk])
             else:
                 for j in range(i, min(i + lookahead + 1, len(plan))):

@@ -7,7 +7,8 @@ It builds the port's kernels from the sources in the checkout, holds each
 against its plain PyTorch version at the shapes the paths give it, and
 drives the paths with seeded weights: LHBDC(N=128) codes a GOP-16, 2-GOP
 window of 1088x1920 B-frames at batch 4 to real rANS streams, FlowGuidedB
-(v4, full width) codes the same window at batch 2, the encode_v / decode_v
+(v4, full width) and DeformB (v3, full width) code the same window at batch
+2 and Flex-Rate (v2, N=128) at batch 4, the encode_v / decode_v
 CLIs code whole synthetic sequences (ELIC intra + B-frames) to a file and
 back, the RD-eval CLI evaluates a sequence, FlowGuidedB codes at every
 down ratio, and bench_torch.py runs bench.py's measurement; each decode
@@ -20,17 +21,23 @@ under its own time limit and prints JSON lines:
   warp_check         kernel vs warp_plain per shape: max abs error (<= 1e-5)
                      and bit for bit,
                      kernel / plain / F.grid_sample times, byte bound
-  deform_check       kernel vs deform_plain at the v4 paths' three shapes
-                     (batch 2: three offset spreads; batch 1: smooth): max
+  deform_check       kernel vs deform_plain at the v4 and v3 paths' three
+                     shapes each (16 and 8 groups; batch 2: three offset
+                     spreads; batch 1: smooth): max
                      abs error (<= 2e-5), kernel / plain times, byte and
                      operation bounds; at the largest shape and spread, two
                      launches must give the same bits
   reference_check    small LHBDC forward on the card vs the same on the CPU
   reference_check_v4 small full-width FlowGuidedB forward, card vs CPU
+  reference_check_v3 the same for DeformB, reference_check_flexrate for
+                     Flex-Rate
   main_path          LHBDC: B-frames/s, bpp, PSNR, decode_bit_exact, warp
                      launches, peak device memory
   main_path_v4       FlowGuidedB: the same, with deform launches and the
                      flow and offset spread it measured
+  main_path_v3       DeformB: the same (deform launches, offset spread)
+  main_path_flexrate Flex-Rate: the same (warp launches, the predicted
+                     flow's and coded refinement's spread)
   sequence_cli       the port's CLIs as a user runs them: encode_v codes
                      synthetic 1088x1920 frames (ELIC intra anchors and
                      B-frames) to one file, decode_v decodes it in another
@@ -40,11 +47,15 @@ under its own time limit and prints JSON lines:
                      in both processes): frames/s, intra ms per frame, bpp,
                      PSNR, decode_bit_exact, launches, peak device memory,
                      the down ratios --adaptive chose
+  sequence_cli_v3_flexrate  the same for DeformB and Flex-Rate, level-batched
+                     33 frames each at their windows' batch caps
   eval_cli           the RD-eval CLI (tpuvc_torch.cli.test) on 17 frames:
                      FlowGuidedB sequential with the down-ratio search and
                      MS-SSIM in float32, LHBDC level-batched at batch cap 8
                      in bfloat16; frames/s, peak memory, per-level PSNR and
                      bpp, down ratios chosen, launches
+  eval_cli_v3_flexrate  the same for DeformB (batch cap 2) and Flex-Rate
+                     (batch cap 4), level-batched, bfloat16
   adaptive_ratios    FlowGuidedB coded at down ratios 2, 4, 8, 16, each
                      stream decoded bit for bit
   bench_torch        bench_torch.py in a subprocess: its last record must
@@ -106,25 +117,39 @@ WARP_SHAPES = [
     # The eval's LHBDC likelihood forward at max_batch 8: SPyNet's four
     # flows batched at B=32, its finest level.
     ("lhbdc", (32, 1088, 1920, 3)),
+    # Flex-Rate's four full-resolution warps a B-frame: B=1 (a level of one
+    # frame), B=2 (level 0 of a 2-GOP window); B=4 is the row above.
+    ("flexrate", (1, 1088, 1920, 3)),
+    ("flexrate", (2, 1088, 1920, 3)),
 ]
 
 # The coded window: bench.py's frame size and GOP, two GOPs.
 FRAME, GOP, WINDOW_GOPS = (1088, 1920), 16, 2
 
-# FlowGuidedB's deform convs at 1088x1920: (level, x shape, output
-# channels, tanh bound of its offsets in px, offset spreads to check).
-# 16 groups, 3x3 taps. B=2 is main_path_v4's batch, with all three
-# spreads; B=1 is sequence_cli's sequential mode, smooth offsets only.
+# The deform convs at 1088x1920: (level, x shape, groups, output channels,
+# tanh bound of the widest offsets in px, offset spreads to check), 3x3
+# taps. FlowGuidedB (v4) fuses both references in one 16-group conv a
+# level; DeformB (v3) aligns each reference with its own 8-group conv over
+# 32/64/96 channels (4/8/12 a group: the kernel's <V=4, MAXO=8> instance).
+# B=2 is main_path_v4's and main_path_v3's batch, with all three spreads;
+# B=1 is a sequential run's (or a level of one frame), smooth offsets only.
+# v3's offsets are not tanh-bounded: its widest spread reuses v4's bounds.
 DEFORM_SPREADS = ("zero", "smooth", "tanh")
 DEFORM_SHAPES = [
-    ("L1", (2, 544, 960, 128), 64, 40.0, DEFORM_SPREADS),
-    ("L2", (2, 272, 480, 192), 96, 20.0, DEFORM_SPREADS),
-    ("L3", (2, 136, 240, 256), 128, 10.0, DEFORM_SPREADS),
-    ("L1", (1, 544, 960, 128), 64, 40.0, ("smooth",)),
-    ("L2", (1, 272, 480, 192), 96, 20.0, ("smooth",)),
-    ("L3", (1, 136, 240, 256), 128, 10.0, ("smooth",)),
+    ("L1", (2, 544, 960, 128), 16, 64, 40.0, DEFORM_SPREADS),
+    ("L2", (2, 272, 480, 192), 16, 96, 20.0, DEFORM_SPREADS),
+    ("L3", (2, 136, 240, 256), 16, 128, 10.0, DEFORM_SPREADS),
+    ("L1", (1, 544, 960, 128), 16, 64, 40.0, ("smooth",)),
+    ("L2", (1, 272, 480, 192), 16, 96, 20.0, ("smooth",)),
+    ("L3", (1, 136, 240, 256), 16, 128, 10.0, ("smooth",)),
+    ("v3 L1", (2, 544, 960, 32), 8, 32, 40.0, DEFORM_SPREADS),
+    ("v3 L2", (2, 272, 480, 64), 8, 64, 20.0, DEFORM_SPREADS),
+    ("v3 L3", (2, 136, 240, 96), 8, 96, 10.0, DEFORM_SPREADS),
+    ("v3 L1", (1, 544, 960, 32), 8, 32, 40.0, ("smooth",)),
+    ("v3 L2", (1, 272, 480, 64), 8, 64, 20.0, ("smooth",)),
+    ("v3 L3", (1, 136, 240, 96), 8, 96, 10.0, ("smooth",)),
 ]
-DEFORM_GROUPS, DEFORM_TAPS = 16, 9
+DEFORM_TAPS = 9
 
 
 def deform_ops(B, H, W, G, Cg, Og, T=DEFORM_TAPS) -> int:
@@ -236,7 +261,7 @@ def smooth_offsets(torch, gen, B, H, W, n):
     return up.permute(0, 2, 3, 1).contiguous()
 
 
-def deform_inputs(torch, gen, B, H, W, C, C_out, G=DEFORM_GROUPS, T=DEFORM_TAPS):
+def deform_inputs(torch, gen, B, H, W, C, C_out, G, T=DEFORM_TAPS):
     """Seeded x, masks, weight (C_out, C/G, 3, 3) and bias for one deform conv."""
     Cg = C // G
     x = torch.randn((B, H, W, C), generator=gen, device="cuda")
@@ -247,17 +272,18 @@ def deform_inputs(torch, gen, B, H, W, C, C_out, G=DEFORM_GROUPS, T=DEFORM_TAPS)
 
 
 def deform_check(torch) -> list[dict]:
-    """The deform kernel against deform_plain at the v4 path's shapes, with
-    offsets at up to three spreads: 0 (integer taps), smooth +-5 px, and
-    the level's tanh bound (40/20/10 px: many samples leave the frame)."""
+    """The deform kernel against deform_plain at the v4 and v3 paths'
+    shapes, with offsets at up to three spreads: 0 (integer taps), smooth
+    +-5 px, and the level's tanh bound (40/20/10 px: many samples leave the
+    frame)."""
     from tpuvc_torch.ops import deform as D
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    G, T = DEFORM_GROUPS, DEFORM_TAPS
+    T = DEFORM_TAPS
     rows = []
-    for level, (B, H, W, C), C_out, bound, kinds in DEFORM_SHAPES:
+    for level, (B, H, W, C), G, C_out, bound, kinds in DEFORM_SHAPES:
         Cg, Og = C // G, C_out // G
-        x, masks, weight, bias = deform_inputs(torch, gen, B, H, W, C, C_out)
+        x, masks, weight, bias = deform_inputs(torch, gen, B, H, W, C, C_out, G)
         n_off = G * T * 2
         make = {
             "zero": lambda: ("zero", torch.zeros((B, H, W, n_off), device="cuda")),
@@ -289,7 +315,7 @@ def deform_check(torch) -> list[dict]:
                 "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
                 "bytes_bound_ms": bound_bytes, "ops_bound_ms": bound_ops,
             }
-            if spread.startswith("tanh") and level == "L1" and B == 2:
+            if spread.startswith("tanh") and level.endswith("L1") and B == 2:
                 # Encoder and decoder run the same launch: full size, widest
                 # spread, the same bits twice.
                 first = D.deform_kernel(*args)
@@ -306,31 +332,76 @@ def deform_check(torch) -> list[dict]:
     return rows
 
 
-def seed_zero_heads(model, generator, flow_scale=1.0, offset_scale=0.05):
-    """Give FlowGuidedB's zero-initialised heads seeded weights.
+#: The families whose seeded models start heads at zero (seed_zero_heads).
+SEEDED_FAMILIES = ("flowguided_b", "deform_b", "flexrate")
 
-    FlowNET's flow head and Offset_ELIC's offset heads start at zero, so
-    with seeded weights every flow would be 0, every offset an integer tap
-    and every mask 0.5: the deform kernel's blend and the decoder's
-    agreement on fractional samples would go untested. Their final convs get
-    flax's lecun-normal draw (the offset heads' scaled down), which gives
-    flows and offsets a fractional spread of a few pixels at full width."""
+
+def _family(model) -> str:
+    from tpuvc_torch.models.deform_b import DeformB
+    from tpuvc_torch.models.flexrate import BidirFlowRef
+    from tpuvc_torch.models.flowguided_b import FlowGuidedB
+
+    for cls, name in ((FlowGuidedB, "flowguided_b"), (DeformB, "deform_b"),
+                      (BidirFlowRef, "flexrate")):
+        if isinstance(model, cls):
+            return name
+    raise TypeError(f"no zero-initialised heads known for {type(model).__name__}")
+
+
+def zero_heads(model) -> list:
+    """(final conv, scale of its seeded draw) of each head the family starts
+    at zero: FlowGuidedB's flow head and offset heads, DeformB's offset
+    heads, Flex-Rate's flow-refinement synthesis."""
+    family = _family(model)
+    if family == "flexrate":
+        return [(model.flow_compressor.g_s_layers[-1].Conv_0, 0.1)]
+    offsets = [(getattr(model.offset_compressor, g).Conv_1,
+                0.05 if family == "flowguided_b" else 1.0)
+               for g in ("g_o1", "g_o2", "g_o3")]
+    if family == "flowguided_b":
+        return [(model.flow_estimator.SubpelConv_3.Conv_0, 1.0)] + offsets
+    return offsets
+
+
+def seed_zero_heads(model, generator):
+    """Give a family's zero-initialised heads seeded weights.
+
+    With seeded weights FlowGuidedB's flows would be 0, every offset of
+    FlowGuidedB and DeformB an integer tap and every mask 0.5, and
+    Flex-Rate's coded flow refinement exactly 0: the deform kernel's blend,
+    the warp's fractional samples and the decoder's agreement on them would
+    go untested. Their final convs get flax's lecun-normal draw, scaled
+    (``zero_heads``), which gives flows and offsets a fractional spread of
+    a few pixels at full width."""
     from tpuvc_torch.models.layers import lecun_normal_
 
-    heads = [(model.flow_estimator.SubpelConv_3.Conv_0, flow_scale)] + [
-        (getattr(model.offset_compressor, g).Conv_1, offset_scale)
-        for g in ("g_o1", "g_o2", "g_o3")
-    ]
-    for conv, scale in heads:
+    for conv, scale in zero_heads(model):
         lecun_normal_(conv.weight, generator)
         conv.weight.data.mul_(scale)
     return model
 
 
+def spread_points(model) -> dict:
+    """{key: (module, pick(args, out))}: where each family's flows and
+    offsets can be read. FlowGuidedB: FlowNET's flow and the offsets of the
+    three deform convs (L1..L3); DeformB: the offsets of each level's first
+    deform conv; Flex-Rate: the predicted flow and the coded refinement."""
+    family = _family(model)
+    if family == "flexrate":
+        return {"flow": (model.flow_predictor, lambda a, o: o),
+                "refinement": (model.flow_compressor.g_s_layers[-1], lambda a, o: o)}
+    if family == "deform_b":
+        convs = {f"L{i}": getattr(model, f"deconv_l{i}_1") for i in (1, 2, 3)}
+        return {k: (m, lambda a, o: a[1]) for k, m in convs.items()}
+    return {"flow": (model.flow_estimator, lambda a, o: o), **{
+        f"L{i}": (getattr(model, f"offset_diversity_l{i}").DeformConv_0, lambda a, o: a[1])
+        for i in (1, 2, 3)}}
+
+
 def spread_hooks(torch, model, spread: dict) -> list:
-    """Forward hooks that put the first flow FlowNET estimates and the first
-    offsets each deform conv takes into ``spread``: their std and largest
-    magnitude in px and the share of fractional values."""
+    """Forward hooks that put the first value at each of the family's
+    ``spread_points`` into ``spread``: its std and largest magnitude in px
+    and the share of fractional values."""
 
     def measure(key, pick):
         def hook(mod, args, out):
@@ -343,19 +414,19 @@ def spread_hooks(torch, model, spread: dict) -> list:
                 }
         return hook
 
-    hooks = [model.flow_estimator.register_forward_hook(measure("flow", lambda a, o: o))]
-    return hooks + [
-        getattr(model, f"offset_diversity_l{i}").DeformConv_0.register_forward_hook(
-            measure(f"L{i}", lambda a, o: a[1])
-        )
-        for i in (1, 2, 3)
-    ]
+    return [m.register_forward_hook(measure(k, pick))
+            for k, (m, pick) in spread_points(model).items()]
 
 
-def check_spread(spread: dict, where: str) -> None:
-    """Fail unless the flow and the offsets of all three levels were
-    measured and are spread over fractional values."""
-    if set(spread) != {"flow", "L1", "L2", "L3"} or not all(
+#: The keys of each family's spread_points.
+SPREAD_KEYS = {"flowguided_b": {"flow", "L1", "L2", "L3"}, "deform_b": {"L1", "L2", "L3"},
+               "flexrate": {"flow", "refinement"}}
+
+
+def check_spread(spread: dict, where: str, family: str = "flowguided_b") -> None:
+    """Fail unless every spread point of ``family`` was measured and is
+    spread over fractional values."""
+    if set(spread) != SPREAD_KEYS[family] or not all(
         v["fractional_share"] > 0 and v["std_px"] > 0 for v in spread.values()
     ):
         raise AssertionError(f"{where}: the flow and offsets have no fractional spread: {spread}")
@@ -363,12 +434,12 @@ def check_spread(spread: dict, where: str) -> None:
 
 @contextlib.contextmanager
 def cli_heads_seeded(spread: dict | None = None):
-    """While open, the CLIs' FlowGuidedB (``encode_b.load_model``, which
-    encode_v and decode_v call, and the eval CLI's ``build_models``) gets
-    :func:`seed_zero_heads` with the generator :func:`v4_model` uses, so an
-    encoder and a decoder in two processes build the same fractional flows
-    and offsets. With ``spread``, the model's :func:`spread_hooks` fill
-    it."""
+    """While open, the CLIs' models of SEEDED_FAMILIES (``encode_b.load_model``,
+    which encode_v and decode_v call, and the eval CLI's ``build_models``)
+    get :func:`seed_zero_heads` with the generator :func:`v4_model` uses, so
+    an encoder and a decoder in two processes build the same fractional
+    flows and offsets. With ``spread``, the model's :func:`spread_hooks`
+    fill it."""
     import torch
 
     from tpuvc_torch.cli import encode_b
@@ -384,11 +455,11 @@ def cli_heads_seeded(spread: dict | None = None):
 
     def load_model(args):
         model = load(args)
-        return seeded(model) if args.family == "flowguided_b" else model
+        return seeded(model) if args.family in SEEDED_FAMILIES else model
 
     def build_models(cfg, rng_seed=0):
         intra, model = build(cfg, rng_seed)
-        return intra, seeded(model) if cfg.model.family == "flowguided_b" else model
+        return intra, seeded(model) if cfg.model.family in SEEDED_FAMILIES else model
 
     encode_b.load_model, eval_cli.build_models = load_model, build_models
     try:
@@ -397,14 +468,35 @@ def cli_heads_seeded(spread: dict | None = None):
         encode_b.load_model, eval_cli.build_models = load, build
 
 
+def _seeded(torch, model_cls, seed, **kw):
+    model = model_cls(generator=torch.Generator().manual_seed(seed), **kw)
+    return seed_zero_heads(model, torch.Generator().manual_seed(seed + 1))
+
+
 def v4_model(torch, N=128, seed=0, **kw):
     """FlowGuidedB at the repo's v4 widths (feature_channels (64, 96, 128),
     N=M=128, 5 levels, groups (6, 6, 12, 24, 80)), seeded weights, seeded
     heads."""
     from tpuvc_torch.models.flowguided_b import FlowGuidedB
 
-    model = FlowGuidedB(N=N, M=N, generator=torch.Generator().manual_seed(seed), **kw)
-    return seed_zero_heads(model, torch.Generator().manual_seed(seed + 1))
+    return _seeded(torch, FlowGuidedB, seed, N=N, M=N, **kw)
+
+
+def v3_model(torch, N=128, seed=0, **kw):
+    """DeformB at the repo's v3 widths (feature_channels (32, 64, 96),
+    N=M=128, 5 levels, groups (6, 6, 12, 24, 80)), seeded weights, seeded
+    offset heads."""
+    from tpuvc_torch.models.deform_b import DeformB
+
+    return _seeded(torch, DeformB, seed, N=N, M=N, **kw)
+
+
+def flexrate_model(torch, N=128, seed=0, **kw):
+    """Flex-Rate's BidirFlowRef at full width (N=128, 6 gain levels), seeded
+    weights, seeded flow-refinement synthesis."""
+    from tpuvc_torch.models.flexrate import BidirFlowRef
+
+    return _seeded(torch, BidirFlowRef, seed, N=N, **kw)
 
 
 def reference_check(torch) -> dict:
@@ -435,28 +527,48 @@ def reference_check(torch) -> dict:
     return row
 
 
-def reference_check_v4(torch) -> dict:
-    """A small full-width FlowGuidedB forward on the card (warp and deform
-    kernels, cuDNN, float32 with TF32 off) against the same model on the
-    CPU (plain versions)."""
-    model = v4_model(torch, seed=3).eval()
+def card_vs_cpu(torch, phase_name: str, model_desc: str, model, forward) -> dict:
+    """A small full-width forward on the card (the kernels, cuDNN, float32
+    with TF32 off) against the same model on the CPU (plain versions), at
+    (1, 128, 128, 3). ``forward(model, x1, xc, x2)`` -> the model's output
+    dict (x_hat, size)."""
     g = torch.Generator().manual_seed(4)
     x1, xc, x2 = (torch.rand((1, 128, 128, 3), generator=g) for _ in range(3))
+    model = model.eval()
     with torch.no_grad():
-        ref = model(x1, x2, xc, 1.0, 0.5, 0.5, 1, "dequantize")
+        ref = forward(model, x1, xc, x2)
         model.cuda()
-        out = model(x1.cuda(), x2.cuda(), xc.cuda(), 1.0, 0.5, 0.5, 1, "dequantize")
+        out = forward(model, x1.cuda(), xc.cuda(), x2.cuda())
     diff = (out["x_hat"].cpu() - ref["x_hat"]).abs()
     x_err = float(diff.max())
     scale = float(ref["x_hat"].abs().max())
-    bits_rel = abs(float(out["size"]) - float(ref["size"])) / float(ref["size"])
-    row = {"phase": "reference_check_v4", "shape": [1, 128, 128, 3],
-           "model": "FlowGuidedB full width", "x_hat_max_abs_err": x_err,
-           "x_hat_max_abs": scale, "bits_rel_err": bits_rel}
+    bits, ref_bits = float(out["size"].sum()), float(ref["size"].sum())
+    bits_rel = abs(bits - ref_bits) / ref_bits
+    row = {"phase": phase_name, "shape": [1, 128, 128, 3], "model": model_desc,
+           "x_hat_max_abs_err": x_err, "x_hat_max_abs": scale, "bits_rel_err": bits_rel}
     emit(row)
     if not (x_err <= 1e-4 * max(1.0, scale) and bits_rel <= 1e-5):
-        raise AssertionError(f"card vs CPU v4 forward disagrees: {row}")
+        raise AssertionError(f"card vs CPU forward disagrees: {row}")
     return row
+
+
+def reference_check_v4(torch) -> dict:
+    return card_vs_cpu(
+        torch, "reference_check_v4", "FlowGuidedB full width", v4_model(torch, seed=3),
+        lambda m, x1, xc, x2: m(x1, x2, xc, 1.0, 0.5, 0.5, 1, "dequantize"))
+
+
+def reference_check_v3(torch) -> dict:
+    return card_vs_cpu(
+        torch, "reference_check_v3", "DeformB full width, offset heads seeded",
+        v3_model(torch, seed=3), lambda m, x1, xc, x2: m(x1, x2, xc, 1.0, "dequantize"))
+
+
+def reference_check_flexrate(torch) -> dict:
+    return card_vs_cpu(
+        torch, "reference_check_flexrate", "Flex-Rate N=128, refinement seeded, n=1 l=0.66",
+        flexrate_model(torch, seed=3),
+        lambda m, x1, xc, x2: m(x1, xc, x2, 1, 0.66, "dequantize"))
 
 
 def drive_window(torch, coder, phase_name: str, model: str, B: int, family: str,
@@ -659,6 +771,54 @@ def main_path_v4(torch) -> dict:
     return row
 
 
+def main_path_v3(torch) -> dict:
+    """DeformB at full width, seeded weights and offset heads, at batch 2,
+    s=1.0 (all six deform convs a B-frame run the kernel's <4, 8>
+    instance). The warm window's first chunk measures the offsets'
+    spread, which must be fractional and nonzero."""
+    from tpuvc_torch.models.deform_b import DeformBCoder
+
+    model = v3_model(torch)
+    coder = DeformBCoder(model, device="cuda")
+    spread = {}
+    hooks = spread_hooks(torch, model, spread)
+    row = drive_window(
+        torch, coder, "main_path_v3",
+        "DeformB fc (32,64,96) N=M=128 levels 5, seeded weights and offset heads",
+        B=2, family="deform_b", kernels=["deform"],
+        after_warm=lambda: [h.remove() for h in hooks],
+        extra={"s": 1.0, "offset_spread": spread},
+    )
+    check_spread(spread, "main_path_v3", "deform_b")
+    return row
+
+
+def main_path_flexrate(torch) -> dict:
+    """Flex-Rate's BidirFlowRef (N=128, 6 gain levels), seeded weights and
+    flow refinement, at batch 4, (n, l) = (1, 1.0): four flexrate warps a
+    B-frame. The warm window's first chunk measures the predicted flow's
+    and the coded refinement's spread."""
+    from tpuvc_torch.models.flexrate import FlexRateCoder
+
+    model = flexrate_model(torch)
+    coder = FlexRateCoder(model, device="cuda")
+    spread = {}
+    hooks = spread_hooks(torch, model, spread)
+    row = drive_window(
+        torch, coder, "main_path_flexrate",
+        "Flex-Rate BidirFlowRef N=128 n_levels 6, seeded weights and refinement",
+        B=4, family="flexrate", kernels=["warp"],
+        after_warm=lambda: [h.remove() for h in hooks],
+        extra={"n": 1, "l": 1.0, "flow_spread": spread},
+    )
+    check_spread(spread, "main_path_flexrate", "flexrate")
+    return row
+
+
+#: The kernels each family's path must launch.
+FAMILY_KERNELS = {"lhbdc": ["warp"], "flowguided_b": ["warp", "deform"],
+                  "deform_b": ["deform"], "flexrate": ["warp"]}
+
 # The CLI runs of sequence_cli: (path name, family, encode_v arguments).
 # LHBDC takes bench.py's window settings with real ELIC anchors; FlowGuidedB
 # runs the sequential mode, at down ratio 1 and with the per-frame
@@ -672,6 +832,18 @@ SEQUENCE_RUNS = [
         "--l", "845"]),
     ("flowguided_b", "flowguided_b", SEQUENCE_V4),
     ("flowguided_b_adaptive", "flowguided_b", SEQUENCE_V4 + ["--adaptive"]),
+]
+# DeformB and Flex-Rate take their windows' settings (main_path_v3,
+# main_path_flexrate) with real ELIC anchors, level-batched, 33 frames.
+SEQUENCE_RUNS_V3_FLEXRATE = [
+    ("deform_b", "deform_b", [
+        "--family", "deform_b", "--synthetic", "33", "--gop", "16", "--level_batched",
+        "--max_batch", "2", "--window_gops", "2", "--compute_dtype", "bfloat16",
+        "--s", "1.0"]),
+    ("flexrate", "flexrate", [
+        "--family", "flexrate", "--synthetic", "33", "--gop", "16", "--level_batched",
+        "--max_batch", "4", "--window_gops", "2", "--compute_dtype", "bfloat16",
+        "--n", "1", "--interp", "0.66"]),
 ]
 SEQUENCE_SIZE = ["--width", str(FRAME[1]), "--height", str(FRAME[0])]
 SEQUENCE_MODEL = ["--init", "random", "--device", "cuda"]
@@ -725,13 +897,14 @@ def down_ratio_histogram(text: str) -> dict:
     return dict(sorted(collections.Counter(int(r) for r in found).items()))
 
 
-def sequence_cli(torch) -> list[dict]:
-    """encode_v in this process (a warm-up call, then a timed one with the
-    launch counts set to 0 just before and read just after), decode_v on
-    the file in a fresh process (DECODE_IN_A_NEW_PROCESS), whose per-frame
-    sha256 must equal the encoder's; then ELIC alone at batch 3 on the
-    window's three anchors. FlowGuidedB's flow and offset heads are seeded
-    in both processes (cli_heads_seeded): the run fails unless its flow
+def sequence_cli(torch, runs, intra: bool = True) -> list[dict]:
+    """For each of ``runs`` (SEQUENCE_RUNS' form): encode_v in this process
+    (a warm-up call, then a timed one with the launch counts set to 0 just
+    before and read just after), decode_v on the file in a fresh process
+    (DECODE_IN_A_NEW_PROCESS), whose per-frame sha256 must equal the
+    encoder's; then, with ``intra``, ELIC alone at batch 3 on the window's
+    three anchors. The zero-initialised heads of SEEDED_FAMILIES are seeded
+    in both processes (cli_heads_seeded): the run fails unless their flows
     and offsets are fractional."""
     import hashlib
     import io
@@ -751,7 +924,7 @@ def sequence_cli(torch) -> list[dict]:
     rows = []
     src = SyntheticSequence(n_frames=2 * GOP + 1, h=h, w=w)  # encode_v's frames
     with tempfile.TemporaryDirectory() as tmp:
-        for path, family, argv in SEQUENCE_RUNS:
+        for path, family, argv in runs:
             bin_path = os.path.join(tmp, f"{path}.tpvb")
             enc_argv = argv + SEQUENCE_SIZE + SEQUENCE_MODEL + ["--bin", bin_path]
             spread = {}
@@ -821,7 +994,7 @@ def sequence_cli(torch) -> list[dict]:
                 "peak_mem_gib_encode": enc_peak,
                 "peak_mem_gib_decode": dec["warm"]["peak_mem_gib"],
             }
-            if family == "flowguided_b":
+            if family in SEEDED_FAMILIES:
                 row["flow_offset_spread"] = spread
             if "--adaptive" in argv:
                 row["down_ratios"] = down_ratio_histogram(log.getvalue())
@@ -832,18 +1005,21 @@ def sequence_cli(torch) -> list[dict]:
             if not finite:
                 emit(row)
                 raise AssertionError(f"sequence_cli {path}: bad reconstructions")
-            if family == "flowguided_b":
+            if family in SEEDED_FAMILIES:
                 try:
-                    check_spread(spread, f"sequence_cli {path}")
+                    check_spread(spread, f"sequence_cli {path}", family)
                 except AssertionError:
                     emit(row)
                     raise
-            need = ["warp"] + (["deform"] if family == "flowguided_b" else [])
-            for k in need:
+            for k in FAMILY_KERNELS[family]:
                 if enc_launches[k] == 0 or dec["warm"]["launches"][k] == 0:
                     emit(row)
                     raise AssertionError(f"sequence_cli {path} launched no {k} kernel")
 
+        if not intra:
+            for row in rows:
+                emit(row)
+            return rows
         # ELIC alone at batch 3: the 2-GOP window's fresh anchors 0, 16, 32.
         args = encode_v.build_parser().parse_args(SEQUENCE_MODEL)
         intra = encode_v.build_intra(args, torch.device("cuda"))
@@ -885,6 +1061,13 @@ EVAL_RUNS = [
     ("lhbdc", ["model.family=lhbdc", "level_batched=True", "window_gops=2",
                "max_batch=8", "compute_dtype=bfloat16"]),
 ]
+# DeformB and Flex-Rate level-batched at their windows' batch caps, bfloat16.
+EVAL_RUNS_V3_FLEXRATE = [
+    ("deform_b", ["model.family=deform_b", "level_batched=True", "window_gops=2",
+                  "max_batch=2", "compute_dtype=bfloat16"]),
+    ("flexrate", ["model.family=flexrate", "level_batched=True", "window_gops=2",
+                  "max_batch=4", "compute_dtype=bfloat16"]),
+]
 
 
 def eval_overrides(path: str, out_dir: str) -> list[str]:
@@ -897,16 +1080,16 @@ def eval_overrides(path: str, out_dir: str) -> list[str]:
         f"dataset.gop={GOP}", f"dataset.width={w}", f"dataset.height={h}", "levels=(0,)",
         f"output_dir={out_dir}", f"intra_weights={out_dir}/none",
         f"inter_weights={out_dir}/none",
-    ] + dict(EVAL_RUNS)[path]
+    ] + dict(EVAL_RUNS + EVAL_RUNS_V3_FLEXRATE)[path]
 
 
-def eval_cli(torch) -> list[dict]:
+def eval_cli(torch, runs) -> list[dict]:
     """The port's RD-eval CLI (tpuvc_torch.cli.test) on 17 synthetic
-    1088x1920 frames, seeded weights (FlowGuidedB's heads seeded): a warm-up
-    call, then a timed one with the launch counts set to 0 just before and
-    read just after. One row per run: frames/s over the eval's wall time,
-    peak device memory, the per-level PSNR and bpp, the down ratios chosen,
-    the launches."""
+    1088x1920 frames for each of ``runs`` (EVAL_RUNS' form), seeded weights
+    (the zero-initialised heads seeded): a warm-up call, then a timed one
+    with the launch counts set to 0 just before and read just after. One row
+    per run: frames/s over the eval's wall time, peak device memory, the
+    per-level PSNR and bpp, the down ratios chosen, the launches."""
     import io
     import math
     import tempfile
@@ -916,7 +1099,7 @@ def eval_cli(torch) -> list[dict]:
     h, w = FRAME
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
-        for path, overrides in EVAL_RUNS:
+        for path, overrides in runs:
             argv = ["--device", "cuda"] + eval_overrides(path, tmp)
             spread = {}
             with cli_heads_seeded(spread):
@@ -941,18 +1124,18 @@ def eval_cli(torch) -> list[dict]:
             }
             if "eval_msssim=True" in overrides:
                 row["msssim_mean"] = sum(r["msssim"] for r in info.rows) / len(info.rows)
-            if path == "flowguided_b":
+            if path in SEEDED_FAMILIES:
                 row["flow_offset_spread"] = spread
             emit(row)
             rows.append(row)
             finite = all(math.isfinite(r[k]) for r in info.rows for k in ("psnr", "size"))
             if out["frames"] != GOP + 1 or not finite or not all(r["size"] > 0 for r in info.rows):
                 raise AssertionError(f"eval_cli {path}: bad per-frame rows")
-            if path == "flowguided_b":
-                check_spread(spread, "eval_cli flowguided_b")
-                if sum(out["down_ratios"].values()) != GOP - 1:
-                    raise AssertionError(f"eval_cli: {out['down_ratios']} for {GOP - 1} B-frames")
-            for k in ["warp"] + (["deform"] if path == "flowguided_b" else []):
+            if path in SEEDED_FAMILIES:
+                check_spread(spread, f"eval_cli {path}", path)
+            if path == "flowguided_b" and sum(out["down_ratios"].values()) != GOP - 1:
+                raise AssertionError(f"eval_cli: {out['down_ratios']} for {GOP - 1} B-frames")
+            for k in FAMILY_KERNELS[path]:
                 if launches[k] == 0:
                     raise AssertionError(f"eval_cli {path} launched no {k} kernel")
     return rows
@@ -1078,20 +1261,32 @@ def main() -> int:
 
     with phase("warp_check", 300):
         warp_rows = warp_check(torch)
-    with phase("deform_check", 240):
+    with phase("deform_check", 360):
         deform_rows = deform_check(torch)
     with phase("reference_check", 120):
         reference_check(torch)
     with phase("reference_check_v4", 120):
         reference_check_v4(torch)
+    with phase("reference_check_v3", 120):
+        reference_check_v3(torch)
+    with phase("reference_check_flexrate", 120):
+        reference_check_flexrate(torch)
     with phase("main_path", 300):
         lhbdc = main_path(torch)
     with phase("main_path_v4", 420):
         v4 = main_path_v4(torch)
+    with phase("main_path_v3", 300):
+        v3 = main_path_v3(torch)
+    with phase("main_path_flexrate", 300):
+        flexrate = main_path_flexrate(torch)
     with phase("sequence_cli", 600):
-        seq_rows = sequence_cli(torch)
+        seq_rows = sequence_cli(torch, SEQUENCE_RUNS)
+    with phase("sequence_cli_v3_flexrate", 420):
+        seq_rows += sequence_cli(torch, SEQUENCE_RUNS_V3_FLEXRATE, intra=False)
     with phase("eval_cli", 300):
-        eval_rows = eval_cli(torch)
+        eval_rows = eval_cli(torch, EVAL_RUNS)
+    with phase("eval_cli_v3_flexrate", 300):
+        eval_rows += eval_cli(torch, EVAL_RUNS_V3_FLEXRATE)
     with phase("adaptive_ratios", 180):
         adaptive = adaptive_ratios(torch)
     with phase("bench_torch", 480):
@@ -1100,7 +1295,8 @@ def main() -> int:
         path_rows = path_shapes_check(torch, logged, warp_rows, deform_rows)
 
     def by_path(kernel):
-        paths = {"lhbdc": lhbdc["launches"][kernel], "flowguided_b": v4["launches"][kernel]}
+        paths = {"lhbdc": lhbdc["launches"][kernel], "flowguided_b": v4["launches"][kernel],
+                 "deform_b": v3["launches"][kernel], "flexrate": flexrate["launches"][kernel]}
         paths.update({f"sequence_cli_{r['path']}": r["launches"][kernel] for r in seq_rows})
         paths.update({f"eval_cli_{r['path']}": r["launches"][kernel] for r in eval_rows})
         paths["adaptive_ratios"] = adaptive["launches"][kernel]
@@ -1114,6 +1310,13 @@ def main() -> int:
     # The deform kernel's headline: the v4 path's largest level, smooth offsets.
     deform_head = next(r for r in deform_rows if r["level"] == "L1" and r["x_shape"][0] == 2
                        and r["spread"] == "smooth_5px")
+    # Each kernel on the v3 and Flex-Rate paths: Flex-Rate's warp at B=1 and
+    # DeformB's largest level (smooth offsets, the <V=4, MAXO=8> instance).
+    slice_heads = {
+        "warp": next(r for r in warp_rows if r["compat"] == "flexrate" and r["shape"][0] == 1),
+        "deform": next(r for r in deform_rows if r["level"] == "v3 L1"
+                       and r["x_shape"][0] == 2 and r["spread"] == "smooth_5px"),
+    }
     kernels = []
     for kernel, head, rows, replaces in (
         ("warp", warp_head, warp_rows, "tpuvc/ops/warp_pallas.py:103"),
@@ -1130,6 +1333,8 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "shape": head.get("shape", head.get("x_shape")),
+            "v3_flexrate_head": {k: slice_heads[kernel].get(k) for k in (
+                "shape", "x_shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

@@ -2,12 +2,13 @@
 
 Run from the repository root:
 
-    python3 scripts/profile_torch_main_path.py [--family lhbdc|flowguided_b|elic|eval_lhbdc|eval_flowguided_b]
+    python3 scripts/profile_torch_main_path.py [--family lhbdc|flowguided_b|deform_b|flexrate|elic|eval_lhbdc|eval_flowguided_b]
 
 Codes chip_smoke.py's window (1088x1920, GOP-16, 2 GOPs, bfloat16 policy,
 seeded weights) for one codec family: LHBDC(N=128) at batch 4 (the
-default), or FlowGuidedB at full width at batch 2 (chip_smoke.py's v4
-path); or, with ``elic``, the window's three intra anchors (frames 0, 16,
+default), FlowGuidedB or DeformB at full width at batch 2, or Flex-Rate
+(N=128) at batch 4 (chip_smoke.py's v4, v3 and Flex-Rate paths); or, with
+``elic``, the window's three intra anchors (frames 0, 16,
 32 of encode_v's synthetic sequence) through ELIC (N=192, M=320) at batch
 3, as encode_v's --level_batched codes them; or, with ``eval_lhbdc`` /
 ``eval_flowguided_b``, the RD-eval CLI's level loop on chip_smoke.py's
@@ -65,7 +66,8 @@ def main() -> int:
         return 2
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--family", default="lhbdc", choices=(
-        "lhbdc", "flowguided_b", "elic", "eval_lhbdc", "eval_flowguided_b"))
+        "lhbdc", "flowguided_b", "deform_b", "flexrate", "elic", "eval_lhbdc",
+        "eval_flowguided_b"))
     codec = parser.parse_args().family
     sys.path.insert(0, ROOT)
     import bench_torch
@@ -121,6 +123,16 @@ def main() -> int:
 
             coder = LHBDCCoder(LHBDC(N=128, generator=torch.Generator().manual_seed(0)))
             batch = 4
+        elif codec == "flexrate":
+            from tpuvc_torch.models.flexrate import FlexRateCoder
+
+            coder = FlexRateCoder(chip_smoke.flexrate_model(torch))
+            batch = 4
+        elif codec == "deform_b":
+            from tpuvc_torch.models.deform_b import DeformBCoder
+
+            coder = DeformBCoder(chip_smoke.v3_model(torch))
+            batch = 2
         else:
             from tpuvc_torch.models.flowguided_b import FlowGuidedBCoder
 

@@ -1,7 +1,7 @@
 """tpuvc_torch on a CUDA card: the hand-written warp and deform kernels
-against their plain PyTorch versions, and small runs of the LHBDC and
-FlowGuidedB paths on the card against the same runs on the CPU and through
-their own decoders.
+against their plain PyTorch versions, and small runs of the LHBDC,
+FlowGuidedB, DeformB and Flex-Rate paths on the card against the same runs
+on the CPU and through their own decoders.
 
 Marked ``gpu``; each test skips without a card. The card's machine has no
 JAX, so this file imports none and runs as
@@ -228,6 +228,28 @@ def test_deform_kernel_matches_plain(cuda, case):
     assert torch.equal(deform_kernel(x, off, masks, weight, bias, G), out)
 
 
+# DeformB's (v3) three levels at 1088x1920, B=1: 8 groups of 4, 8, 12
+# channels in and out (the kernel's <V=4, MAXO=8> instance), offsets of a
+# few px.
+V3_DEFORM_CASES = [
+    (1, 544, 960, 8, 4, 4, 3.0),
+    (1, 272, 480, 8, 8, 8, 3.0),
+    (1, 136, 240, 8, 12, 12, 3.0),
+]
+
+
+@pytest.mark.parametrize("case", V3_DEFORM_CASES)
+def test_deform_kernel_at_the_v3_shapes(cuda, case):
+    from tpuvc_torch.ops.deform import deform_kernel, deform_plain
+
+    B, H, W, G, Cg, Og, spread = case
+    args = [t.to(cuda) for t in _deform_inputs(B, H, W, G, Cg, Og, spread, seed=Cg)]
+    out = deform_kernel(*args, G)
+    ref = deform_plain(*args, G)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 2e-5
+
+
 def test_deform_kernel_misaligned_input(cuda):
     """x that does not start on a 16-byte boundary takes the scalar lanes."""
     from tpuvc_torch.ops.deform import deform_kernel, deform_plain
@@ -373,12 +395,12 @@ def test_elic_batch_round_trip_on_card(cuda, dtype):
     assert enc["shape"] == (4, 4) and len(enc["strings"]) == 3
 
 
-@pytest.mark.parametrize("family", ["lhbdc", "flowguided_b"])
+@pytest.mark.parametrize("family", ["lhbdc", "flowguided_b", "deform_b", "flexrate"])
 def test_sequence_cli_round_trip_on_card(cuda, tmp_path, family):
     """encode_v then decode_v with --device cuda at 128x128 (9 frames, GOP
-    4, small LHBDC and ELIC; FlowGuidedB at full width, its flow and offset
-    heads seeded): the decode equals the encoder's reconstructions, through
-    the kernels."""
+    4, small LHBDC, Flex-Rate and ELIC; FlowGuidedB and DeformB at full
+    width; zero-initialised heads seeded): the decode equals the encoder's
+    reconstructions, through the kernels."""
     import chip_smoke
     from tpuvc_torch.cli import decode_v, encode_v
     from tpuvc_torch.coder import parallel
@@ -388,7 +410,7 @@ def test_sequence_cli_round_trip_on_card(cuda, tmp_path, family):
     model = ["--init", "random", "--N", "32", "--intra_N", "16", "--intra_M", "24",
              "--intra_groups", "4,4,16", "--device", "cuda"]
     mode = (["--level_batched", "--window_gops", "2", "--max_batch", "4"]
-            if family == "lhbdc" else ["--s", "1.0"])
+            if family in ("lhbdc", "flexrate") else ["--s", "1.0"])
     bin_path = str(tmp_path / "seq.tpvb")
     warp_kernel.launches = deform_kernel.launches = 0
     try:
@@ -401,8 +423,8 @@ def test_sequence_cli_round_trip_on_card(cuda, tmp_path, family):
         parallel.shutdown()
     assert sorted(enc) == sorted(dec) == list(range(9))
     assert all(torch.equal(enc[i], dec[i]) for i in enc)
-    assert warp_kernel.launches > 0
-    assert (deform_kernel.launches > 0) == (family == "flowguided_b")
+    assert (warp_kernel.launches > 0) == (family != "deform_b")
+    assert (deform_kernel.launches > 0) == (family in ("flowguided_b", "deform_b"))
 
 
 @pytest.mark.parametrize("compat, shape", [
@@ -417,6 +439,90 @@ def test_warp_kernel_at_the_eval_shapes(cuda, compat, shape):
     ref = warp_plain(img, flow, compat)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_warp_kernel_at_the_flexrate_shapes(cuda, B):
+    """Flex-Rate's four full-resolution warps: half-pixel shift over a zero
+    ring, at B=1 (a sequential frame) and B=2."""
+    from tpuvc_torch.ops.warp import warp, warp_plain
+
+    img, flow = (t.to(cuda) for t in _inputs((B, 1088, 1920, 3), seed=8))
+    out = warp(img, flow, "flexrate")
+    ref = warp_plain(img, flow, "flexrate")
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def _v3_model():
+    import chip_smoke
+
+    return chip_smoke.v3_model(torch, N=32, seed=0, feature_channels=(8, 16, 24),
+                               levels=3, groups=(4, 4, 8, 16))
+
+
+def _flexrate_model():
+    import chip_smoke
+
+    return chip_smoke.flexrate_model(torch, N=32, seed=0, n_levels=4)
+
+
+@pytest.mark.parametrize("family", ["deform_b", "flexrate"])
+def test_v3_and_flexrate_forward_card_matches_cpu(cuda, family):
+    """float32 with TF32 off: DeformB's (deform kernel) and Flex-Rate's
+    (warp kernel) forwards on the card agree with the CPU's within
+    summation-order noise."""
+    if family == "deform_b":
+        model, hw = _v3_model().eval(), 64
+        fwd = lambda m, x1, xc, x2: m(x1, x2, xc, 1.0, "dequantize")
+    else:
+        model, hw = _flexrate_model().eval(), 128
+        fwd = lambda m, x1, xc, x2: m(x1, xc, x2, 1, 0.66, "dequantize")
+    x1, xc, x2 = _frames((2, hw, hw, 3))
+    with torch.no_grad():
+        ref = fwd(model, x1, xc, x2)
+        model.to(cuda)
+        out = fwd(model, x1.to(cuda), xc.to(cuda), x2.to(cuda))
+    scale = max(1.0, float(ref["x_hat"].abs().max()))
+    assert float((out["x_hat"].cpu() - ref["x_hat"]).abs().max()) <= 1e-4 * scale
+    assert abs(float(out["size"].sum()) / float(ref["size"].sum()) - 1.0) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", ["deform_b", "flexrate"])
+def test_v3_and_flexrate_round_trip_on_card(cuda, family, dtype):
+    """Level-batched encode, then decode, bit-exact, on the card: DeformB
+    through its six deform convs a side, Flex-Rate through its four
+    flexrate warps a side (its decode through the async pair)."""
+    from tpuvc_torch.coder import parallel
+    from tpuvc_torch.models.deform_b import DeformBCoder
+    from tpuvc_torch.models.flexrate import FlexRateCoder
+    from tpuvc_torch.ops.deform import deform_kernel
+    from tpuvc_torch.ops.precision import policy_from_name
+    from tpuvc_torch.ops.warp import warp_kernel
+
+    warp_kernel.launches = deform_kernel.launches = 0
+    try:
+        with policy_from_name(dtype):
+            if family == "deform_b":
+                coder = DeformBCoder(_v3_model())
+                x1, xc, x2 = (t.to(cuda) for t in _frames((2, 64, 64, 3)))
+                bits, x_hat = coder.encode_level_batch(x1, x2, xc, 1.0)
+                parsed = [type(b).deserialize(b.serialize()) for b in bits]
+                dec = coder.decode_level_batch(x1, x2, parsed)
+            else:
+                coder = FlexRateCoder(_flexrate_model())
+                x1, xc, x2 = (t.to(cuda) for t in _frames((2, 128, 128, 3)))
+                bits, x_hat = coder.encode_level_batch(x1, xc, x2, 1, 0.66)
+                parsed = [type(b).deserialize(b.serialize()) for b in bits]
+                dec = coder.decode_level_batch_async(parsed)(x1, x2)
+    finally:
+        parallel.shutdown()
+    assert torch.equal(dec, x_hat)
+    if family == "deform_b":
+        assert (deform_kernel.launches, warp_kernel.launches) == (2 * 6, 0)
+    else:
+        assert (deform_kernel.launches, warp_kernel.launches) == (0, 2 * 4)
 
 
 @pytest.mark.parametrize("down_ratio", [2, 4])

@@ -12,7 +12,15 @@ on the same small packs, frames and configuration, on the CPU.
   next by at least 0.01 dB, while the packages' PSNRs of one candidate
   differ by at most 1e-3 dB.
 
-Both use ELIC (N=16, M=24) for the I-frames. Per-frame rows match: PSNR
+- DeformB (tpuvc's small v3: feature channels (8, 16, 24), N=M=32, 3
+  levels) sequential and level-batched on 9 synthetic 64x64 frames at
+  rate level 1, its offset heads seeded.
+- Flex-Rate (N=32, 4 gain levels) sequential and level-batched on 9
+  synthetic 128x128 frames (its hyperprior codes at /64) at RD points 2
+  and 5, each B-frame's (n, l) from the point's table by its hierarchy
+  level; the flow refinement's synthesis seeded.
+
+All use ELIC (N=16, M=24) for the I-frames. Per-frame rows match: PSNR
 within 1e-4 dB, bits within 1e-5 relative (float32 totals, ROADMAP.md C),
 MS-SSIM within 1e-5; the chosen ratios are equal. Both configurations are
 made by each package's own ``apply_overrides`` from the same overrides.
@@ -21,12 +29,15 @@ made by each package's own ``apply_overrides`` from the same overrides.
 import collections
 import dataclasses
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from torch_params_common import (
     V4_KW,
+    filled_params,
     translating_frames,
     v4_constant_flow_params,
     write_sequence_checkpoints,
@@ -37,13 +48,20 @@ from tpuvc_torch.utils.convert import params_from_jax
 
 torch.set_num_threads(1)
 
+V3_KW = dict(feature_channels=(8, 16, 24), N=32, M=32, levels=3, groups=(4, 4, 8, 16))
+FLEXRATE_KW = dict(n_levels=4, N=32)
+
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
+    from tpuvc.models.deform_b import DeformB as JDeformB
     from tpuvc.models.elic import ELIC as JELIC
+    from tpuvc.models.flexrate import BidirFlowRef as JBidirFlowRef
     from tpuvc.models.lhbdc import LHBDC as JLHBDC
     from tpuvc_torch.data.frames import save_png
+    from tpuvc_torch.models.deform_b import DeformB
     from tpuvc_torch.models.elic import ELIC
+    from tpuvc_torch.models.flexrate import BidirFlowRef
     from tpuvc_torch.models.flowguided_b import FlowGuidedB
     from tpuvc_torch.models.lhbdc import LHBDC
 
@@ -53,6 +71,16 @@ def setup(tmp_path_factory):
         save_png(str(root / "moving" / f"{i:03d}.png"), img)
     lhbdc, elic = write_sequence_checkpoints(root)
     jv4, v4 = v4_constant_flow_params(flow=3.0)
+    x64, x128 = jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 128, 128, 3))
+    jv3 = JDeformB(**V3_KW)
+    v3 = filled_params(lambda: jv3.init(jax.random.key(0), x64, x64, x64, 1, "dequantize"),
+                       seed=1, scale={f"params/offset_compressor/g_o{i}/Conv_1": 1.0
+                                      for i in (1, 2, 3)})
+    jfr = JBidirFlowRef(**FLEXRATE_KW)
+    fr = filled_params(lambda: jfr.init(jax.random.key(0), x128, x128, x128, 0, 1.0,
+                                        "dequantize"),
+                       seed=2, scale={f"params/{c}/g_s_layers_7": 0.1
+                                      for c in ("flow_compressor", "residual_compressor")})
 
     def port(module, tree):
         module.load_state_dict(params_from_jax(tree), strict=True)
@@ -64,6 +92,8 @@ def setup(tmp_path_factory):
                   port(ELIC(N=16, M=24, groups=(4, 4, 16)), elic)),
         "lhbdc": ((JLHBDC(N=32), lhbdc), port(LHBDC(N=32), lhbdc)),
         "flowguided_b": ((jv4, v4), port(FlowGuidedB(**V4_KW), v4)),
+        "deform_b": ((jv3, v3), port(DeformB(**V3_KW), v3)),
+        "flexrate": ((jfr, fr), port(BidirFlowRef(**FLEXRATE_KW), fr)),
     }
 
 
@@ -134,9 +164,29 @@ def test_run_levels_flowguided_adaptive_matches_tpuvc(setup, monkeypatch):
     _check_rows(prows, jrows)
 
 
+V3_FLEXRATE_RUNS = {
+    "deform_b_sequential": ("deform_b", 64, ["levels=(1,)"]),
+    "deform_b_level_batched": ("deform_b", 64, ["levels=(1,)", "level_batched=True",
+                                                "window_gops=2", "max_batch=2"]),
+    "flexrate_sequential": ("flexrate", 128, ["levels=(2,)"]),
+    "flexrate_level_batched": ("flexrate", 128, ["levels=(5,)", "level_batched=True",
+                                                 "window_gops=2", "max_batch=4"]),
+}
+
+
+@pytest.mark.parametrize("run", list(V3_FLEXRATE_RUNS))
+def test_run_levels_v3_and_flexrate_match_tpuvc(setup, monkeypatch, run):
+    family, hw, overrides = V3_FLEXRATE_RUNS[run]
+    prows, jrows, ratios, _ = _run_both(setup, family, [
+        "dataset.name=synthetic", "dataset.sequences={'synth': 9}", "dataset.gop=4",
+        f"dataset.width={hw}", f"dataset.height={hw}",
+    ] + overrides, monkeypatch)
+    assert len(prows) == 9 and ratios == collections.Counter()
+    assert sum(r["type"] == "B" for r in prows) == 6
+    _check_rows(prows, jrows)
+
+
 @pytest.mark.parametrize("override, match", [
-    ("model.family=flexrate", "A11"),
-    ("model.family=deform_b", "A12"),
     ("model.family=dmc", "A14"),
     ("write_plots=True", "A16"),
     ("device_count=2", "A16"),

@@ -50,6 +50,8 @@ LAYERS = {
     "conv1": (lambda: jl.Conv(3, kernel=1), lambda: tl.Conv(4, 3, kernel=1), 4),
     "deconv": (lambda: jl.Deconv(5, kernel=5, stride=2),
                lambda: tl.Deconv(4, 5, kernel=5, stride=2), 4),
+    "deconv_k3": (lambda: jl.Deconv(5, kernel=3, stride=2),
+                  lambda: tl.Deconv(4, 5, kernel=3, stride=2), 4),
     "subpel": (lambda: jl.SubpelConv(3, r=2), lambda: tl.SubpelConv(4, 3, r=2), 4),
     "gdn": (lambda: jl.GDN(), lambda: tl.GDN(8), 8),
     "igdn": (lambda: jl.GDN(inverse=True), lambda: tl.GDN(8, inverse=True), 8),

@@ -3,11 +3,13 @@ schedule, the decoded picture buffer, the VSequenceBitstream byte layout,
 PSNR, synthetic frames and PNG writing, and round trips of the port's
 encode_v/decode_v and encode_b/decode_b CLIs (``--device cpu``).
 
-The CLI runs use tpuvc's tests/test_vseq_cli.py model sizes (LHBDC N=32,
-ELIC N=16 M=24 groups (4, 4, 16)) on 9 synthetic 64x64 frames at GOP 4;
-FlowGuidedB runs at its full width, as tpuvc's CLI builds it, with its
-flow and offset heads seeded (``chip_smoke.cli_heads_seeded``). Each decode
-must equal the encoder's reconstructions bit for bit (``torch.equal``).
+The CLI runs use tpuvc's tests/test_vseq_cli.py model sizes (LHBDC and
+Flex-Rate N=32, ELIC N=16 M=24 groups (4, 4, 16)) on 9 synthetic 64x64
+frames at GOP 4; FlowGuidedB and DeformB run at their full width, as
+tpuvc's CLI builds them. Their zero-initialised heads (v4's flow and
+offset heads, v3's offset heads, Flex-Rate's flow refinement) are seeded
+(``chip_smoke.cli_heads_seeded``). Each decode must equal the encoder's
+reconstructions bit for bit (``torch.equal``).
 """
 
 import os
@@ -176,28 +178,38 @@ def _round_trip(tmp_path, enc_args, dec_args):
     return port
 
 
-@pytest.mark.parametrize("case", ["lhbdc_sequential", "lhbdc_level_batched_bf16",
-                                  "flowguided_b_level_batched"])
+CLI_CASES = {
+    "lhbdc_sequential": ["--family", "lhbdc"],
+    "lhbdc_level_batched_bf16": ["--family", "lhbdc", "--level_batched", "--window_gops",
+                                 "2", "--max_batch", "4", "--compute_dtype", "bfloat16"],
+    "flowguided_b_level_batched": ["--family", "flowguided_b", "--level_batched",
+                                   "--s", "1.0"],
+    "deform_b_sequential": ["--family", "deform_b", "--s", "1.5"],
+    "deform_b_level_batched_bf16": ["--family", "deform_b", "--level_batched", "--window_gops",
+                                    "2", "--max_batch", "2", "--compute_dtype", "bfloat16",
+                                    "--s", "1.0"],
+    "flexrate_sequential": ["--family", "flexrate", "--n", "1", "--interp", "0.66"],
+    "flexrate_level_batched_bf16": ["--family", "flexrate", "--level_batched", "--window_gops",
+                                    "2", "--max_batch", "4", "--compute_dtype", "bfloat16",
+                                    "--n", "2", "--interp", "1.0"],
+}
+
+
+@pytest.mark.parametrize("case", list(CLI_CASES))
 def test_cli_round_trip_is_bit_exact(tmp_path, case):
-    extra = {
-        "lhbdc_sequential": ["--family", "lhbdc"],
-        "lhbdc_level_batched_bf16": ["--family", "lhbdc", "--level_batched", "--window_gops",
-                                     "2", "--max_batch", "4", "--compute_dtype", "bfloat16"],
-        "flowguided_b_level_batched": ["--family", "flowguided_b", "--level_batched",
-                                       "--s", "1.0"],
-    }[case]
+    extra = CLI_CASES[case]
     spread = {}
     with chip_smoke.cli_heads_seeded(spread):
         seq = _round_trip(tmp_path, SMALL + extra, MODEL_ARGS)
-    if seq.family == "flowguided_b":
-        # seeded flow and offset heads: fractional samples in both passes
-        chip_smoke.check_spread(spread, case)
+    if seq.family in chip_smoke.SEEDED_FAMILIES:
+        # seeded heads: fractional flows and offsets in both passes
+        chip_smoke.check_spread(spread, case, seq.family)
     assert seq.family == extra[1]
     assert (seq.width, seq.height, seq.gop, seq.n_frames) == (64, 64, 4, 9)
     assert seq.mode == (1 if "--level_batched" in extra else 0)
     assert seq.dtype == (1 if "bfloat16" in extra else 0)
     if "--window_gops" in extra:
-        assert (seq.window_gops, seq.max_batch) == (2, 4)
+        assert (seq.window_gops, seq.max_batch) == (2, int(extra[extra.index("--max_batch") + 1]))
         # The window's three anchors are one batch of I records.
         assert [t for t, _, _ in seq.frames[:4]] == ["I", "I", "I", "B"]
 
@@ -243,9 +255,34 @@ def test_encode_decode_b_round_trip_on_real_frames(tmp_path):
     assert jcont.BFrameBitstream.deserialize(open(bin_path, "rb").read()).rate_id == 845
 
 
+@pytest.mark.parametrize("family, rate, model", [
+    ("deform_b", ["--s", "1.5"], []),
+    ("flexrate", ["--n", "2", "--interp", "0.33"], ["--N", "32"]),
+])
+def test_encode_decode_b_v3_and_flexrate_round_trip(tmp_path, family, rate, model):
+    """encode_b / decode_b on the real frames (192x256) for DeformB (full
+    width) and Flex-Rate, their heads seeded in both: the decode equals the
+    encoder's reconstruction and the header carries the rate."""
+    from tpuvc_torch.cli import decode_b, encode_b
+
+    r1, cur, r2 = (os.path.join(ROOT, "frames", f) for f in ("ref_1.png", "current.png",
+                                                            "ref_2.png"))
+    bin_path, out_path = str(tmp_path / "bits.bin"), str(tmp_path / "dec.png")
+    common = ["--family", family, "--init", "random", "--device", "cpu"] + model
+    with chip_smoke.cli_heads_seeded():
+        bits, recon = encode_b.main(common + rate + [
+            "--ref_1", r1, "--ref_2", r2, "--current", cur, "--bin", bin_path])
+        x_hat = decode_b.main(common + ["--ref_1", r1, "--ref_2", r2, "--bin", bin_path,
+                                        "--out", out_path])
+    assert torch.equal(x_hat, recon)
+    blob = open(bin_path, "rb").read()
+    if family == "flexrate":
+        assert jcont.BFrameBitstream.deserialize(blob).rate_id == 200330
+    else:
+        assert jcont.VFrameBitstream.deserialize(blob).s_milli == 1500
+
+
 @pytest.mark.parametrize("argv, match", [
-    (["--family", "flexrate"], "A11"),
-    (["--family", "deform_b"], "A12"),
     (["--family", "flowguided_b", "--adaptive", "--level_batched"], "sequential mode"),
     (["--level_batched", "--mesh", "2"], "A16"),
 ])

@@ -28,7 +28,7 @@ def _leaf(name: str, shape, rng):
         return 1.0 + 0.1 * np.abs(rng.standard_normal(shape))
     if name == "gamma":
         return np.sqrt(0.1 * np.eye(shape[0])) + 0.01 * np.abs(rng.standard_normal(shape))
-    if name.endswith("Gain"):
+    if name.endswith("Gain") or name == "gain_matrix":  # CondELIC's, Flex-Rate's
         return np.exp(0.2 * rng.standard_normal(shape))
     if name.startswith("bias") or name.endswith("_bias"):
         return 0.02 * rng.standard_normal(shape)

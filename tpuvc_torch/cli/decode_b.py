@@ -3,7 +3,8 @@
     python -m tpuvc_torch.cli.decode_b --ref_1 a.png --ref_2 b.png \
         --bin out.bin --out decoded.png --weights dir/
 
-LHBDC's lambda, and so its weights file, is read from the bitstream header.
+LHBDC's lambda, and so its weights file, and Flex-Rate's (n, l) are read
+from the bitstream header.
 ``--compute_dtype`` and the model flags must match the encoder's.
 """
 
@@ -41,19 +42,18 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
 
     from tpuvc_torch import resolve_device
-    from tpuvc_torch.cli.encode_b import check_family, load_model, make_coder
+    from tpuvc_torch.cli.encode_b import load_model, make_coder
     from tpuvc_torch.coder.container import BFrameBitstream, VFrameBitstream
     from tpuvc_torch.data.frames import float_to_uint8, prepare_frame, save_png
     from tpuvc_torch.ops.precision import policy_from_name, set_deterministic
 
-    check_family(args.family)
     device = resolve_device(args.device)
     set_deterministic()
     with open(args.bin, "rb") as f:
         blob = f.read()
-    if args.family == "lhbdc":
+    if args.family in ("lhbdc", "flexrate"):
         bits = BFrameBitstream.deserialize(blob)
-        args.l = bits.rate_id
+        args.l = bits.rate_id  # LHBDC's weights file names its lambda
     else:
         bits = VFrameBitstream.deserialize(blob)
     coder = make_coder(args, load_model(args), device)

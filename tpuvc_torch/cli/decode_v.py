@@ -137,11 +137,11 @@ def _decode_level_batched(seq, coder, intra_coder, frame_cls) -> dict:
             decoded_host[idx] = to_host(dec[j])
 
     groups = _regroup(seq, level_of)
-    # LHBDC's entropy decode needs no references: a B chunk's rANS and
-    # entropy parameters are submitted up to `lookahead` chunks ahead on
-    # workers while the device tail of earlier chunks runs. v4's
-    # conditional bottlenecks need the references for their entropy
-    # parameters, so they decode chunk by chunk.
+    # LHBDC's and Flex-Rate's entropy decode needs no references: a B
+    # chunk's rANS and entropy parameters are submitted up to `lookahead`
+    # chunks ahead on workers while the device tail of earlier chunks runs.
+    # v3's and v4's conditional bottlenecks need the references for their
+    # entropy parameters, so they decode chunk by chunk.
     pipelined = hasattr(coder, "decode_level_batch_async")
     lookahead = 4
     pending: dict = {}
@@ -173,7 +173,7 @@ def main(argv=None):
     import torch
 
     from tpuvc_torch import resolve_device
-    from tpuvc_torch.cli.encode_b import check_family, load_model, make_coder
+    from tpuvc_torch.cli.encode_b import load_model, make_coder
     from tpuvc_torch.cli.encode_v import build_intra, finish, load_frames, to_host
     from tpuvc_torch.coder.container import (
         BFrameBitstream,
@@ -192,14 +192,13 @@ def main(argv=None):
     with open(args.bin, "rb") as f:
         seq = VSequenceBitstream.deserialize(f.read())
     args.family = seq.family
-    check_family(seq.family)
     if seq.mesh > 1:
         raise SystemExit(f"the stream was coded over a {seq.mesh}-device mesh, which "
                          "tpuvc_torch does not replay yet: ROADMAP.md queue A, A16")
     h, w, n = seq.height, seq.width, seq.n_frames
     coder = make_coder(args, load_model(args), device)
     intra_coder = build_intra(args, device)
-    frame_cls = BFrameBitstream if seq.family == "lhbdc" else VFrameBitstream
+    frame_cls = BFrameBitstream if seq.family in ("lhbdc", "flexrate") else VFrameBitstream
 
     originals = None
     if args.frames or args.synthetic:

@@ -3,7 +3,8 @@
     python -m tpuvc_torch.cli.encode_b --ref_1 a.png --ref_2 b.png \
         --current c.png --bin out.bin --l 1626 --weights dir/
 
-Weights are read from ``{weights}/compression_{l}.msgpack`` (LHBDC) or
+Weights are read from ``{weights}/compression_{l}.msgpack`` (LHBDC),
+``{weights}/flexrate.msgpack``, ``{weights}/deform_b.msgpack`` or
 ``{weights}/flowguided_b.msgpack``: tpuvc's flax checkpoints, converted by
 ``tpuvc_torch.utils.convert.params_from_jax``. ``--init random`` draws
 seeded weights instead. Runs on ``--device`` (default ``cuda``; no quiet
@@ -17,13 +18,6 @@ import os
 
 FAMILIES = ["lhbdc", "flexrate", "deform_b", "flowguided_b"]
 
-#: Families tpuvc codes that the port does not yet, and where ROADMAP.md
-#: queues them.
-NOT_PORTED = {
-    "flexrate": "ROADMAP.md queue A, A11 (Flex-Rate v2)",
-    "deform_b": "ROADMAP.md queue A, A12 (v3 DeformB)",
-}
-
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__)
@@ -34,8 +28,12 @@ def build_parser():
     p.add_argument("--bin", default="bits.bin")
     p.add_argument("--l", type=int, default=1626,
                    help="lhbdc: lambda rate point (228|436|845|1626|3141)")
+    p.add_argument("--n", type=int, default=0,
+                   help="flexrate: gain level index")
+    p.add_argument("--interp", type=float, default=1.0,
+                   help="flexrate: fractional interpolation l in (0, 1]")
     p.add_argument("--s", type=float, default=0.0,
-                   help="flowguided_b: rate level (fractional allowed)")
+                   help="deform_b, flowguided_b: rate level (fractional allowed)")
     p.add_argument("--down_ratio", type=int, default=1,
                    help="flowguided_b: motion-adaptive down ratio")
     p.add_argument("--scale1", type=float, default=0.5)
@@ -45,19 +43,11 @@ def build_parser():
     p.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="layer compute policy; the decoder must be run "
-                        "with the same value (like --l)")
+                        "with the same value (like --l / --n)")
     p.add_argument("--N", type=int, default=128)
     p.add_argument("--device", default="cuda",
                    help="torch device to code on (default cuda)")
     return p
-
-
-def check_family(family: str) -> None:
-    if family in NOT_PORTED:
-        raise SystemExit(
-            f"family {family!r} is not ported to tpuvc_torch yet: "
-            f"{NOT_PORTED[family]}"
-        )
 
 
 def load_model(args):
@@ -65,12 +55,21 @@ def load_model(args):
     ones (``--init random``, a torch.Generator seeded with 0)."""
     import torch
 
-    check_family(args.family)
     if args.family == "lhbdc":
         from tpuvc_torch.models.lhbdc import LHBDC
 
         ckpt = f"compression_{args.l}.msgpack"
         make = lambda g: LHBDC(N=args.N, generator=g)
+    elif args.family == "flexrate":
+        from tpuvc_torch.models.flexrate import BidirFlowRef
+
+        ckpt = "flexrate.msgpack"
+        make = lambda g: BidirFlowRef(N=args.N, generator=g)
+    elif args.family == "deform_b":
+        from tpuvc_torch.models.deform_b import DeformB
+
+        ckpt = "deform_b.msgpack"
+        make = lambda g: DeformB(generator=g)
     else:
         from tpuvc_torch.models.flowguided_b import FlowGuidedB
 
@@ -88,11 +87,18 @@ def load_model(args):
 
 
 def make_coder(args, model, device):
-    check_family(args.family)
     if args.family == "lhbdc":
         from tpuvc_torch.models.lhbdc import LHBDCCoder
 
         return LHBDCCoder(model, device=device)
+    if args.family == "flexrate":
+        from tpuvc_torch.models.flexrate import FlexRateCoder
+
+        return FlexRateCoder(model, device=device)
+    if args.family == "deform_b":
+        from tpuvc_torch.models.deform_b import DeformBCoder
+
+        return DeformBCoder(model, device=device)
     from tpuvc_torch.models.flowguided_b import FlowGuidedBCoder
 
     return FlowGuidedBCoder(model, device=device)
@@ -115,6 +121,11 @@ def main(argv=None):
     with policy_from_name(args.compute_dtype):
         if args.family == "lhbdc":
             bits, x_hat = coder.encode_recon(x_before, x_current, x_after, rate_id=args.l)
+        elif args.family == "flexrate":
+            bits, x_hat = coder.encode_recon(x_before, x_current, x_after, n=args.n,
+                                             l=args.interp)
+        elif args.family == "deform_b":
+            bits, x_hat = coder.encode_recon(x_before, x_after, x_current, s=args.s)
         else:
             bits, x_hat = coder.encode_recon(
                 x_before, x_after, x_current, s=args.s, scale1=args.scale1,

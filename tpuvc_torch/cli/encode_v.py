@@ -44,6 +44,10 @@ def build_parser():
     # Rate knobs (family-dependent, as in encode_b).
     p.add_argument("--l", type=int, default=1626,
                    help="lhbdc lambda rate point (228|436|845|1626|3141)")
+    p.add_argument("--n", type=int, default=0,
+                   help="flexrate gain level")
+    p.add_argument("--interp", type=float, default=1.0,
+                   help="flexrate interpolation factor l in (0, 1]")
     p.add_argument("--s", type=float, default=0.0,
                    help="v3/v4 fractional rate level")
     p.add_argument("--down_ratio", type=int, default=1,
@@ -147,6 +151,10 @@ def code_b_frame(coder, family, args, ref1, ref2, xcur, idx, o1, o2):
     """Encode one B-frame; returns (bitstream, decoder-identical recon)."""
     if family == "lhbdc":
         return coder.encode_recon(ref1, xcur, ref2, rate_id=args.l)
+    if family == "flexrate":
+        return coder.encode_recon(ref1, xcur, ref2, n=args.n, l=args.interp)
+    if family == "deform_b":
+        return coder.encode_recon(ref1, ref2, xcur, s=args.s)
     from tpuvc_torch.models.flowguided_b import get_scales
 
     s1, s2 = get_scales(idx, o1, o2)
@@ -208,6 +216,10 @@ def _encode_level_batched(args, frames, coder, intra_coder, device) -> dict:
     def encode_chunk(chunk, refs, xb, xa, xc):
         if args.family == "lhbdc":
             return coder.encode_level_batch_async(xb, xc, xa, rate_id=args.l)
+        if args.family == "flexrate":
+            return coder.encode_level_batch_async(xb, xc, xa, n=args.n, l=args.interp)
+        if args.family == "deform_b":
+            return coder.encode_level_batch_async(xb, xa, xc, s=args.s)
         from tpuvc_torch.models.flowguided_b import get_scales
 
         a0, b0 = refs[0]
@@ -289,7 +301,7 @@ def main(argv=None):
     import torch
 
     from tpuvc_torch import resolve_device
-    from tpuvc_torch.cli.encode_b import check_family, load_model, make_coder
+    from tpuvc_torch.cli.encode_b import load_model, make_coder
     from tpuvc_torch.coder.container import IFrameBitstream, VSequenceBitstream
     from tpuvc_torch.data.uvg import device_frame
     from tpuvc_torch.eval.metrics import psnr_uint8
@@ -297,7 +309,6 @@ def main(argv=None):
     from tpuvc_torch.gop.order import sequence_schedule
     from tpuvc_torch.ops.precision import policy_from_name, set_deterministic
 
-    check_family(args.family)
     check_unported(args)
     if args.level_batched and args.adaptive:
         raise SystemExit(

@@ -12,29 +12,30 @@ bits from the likelihoods, no streams), and writes the ICIP-format results
 CSV (level, sequence, psnr, bpp). FlowGuidedB picks each B-frame's motion
 down ratio by the flow-only prediction search
 (``adaptive_down_ratio=True``, tpuvc's default); ``level_batched=True``
-codes each hierarchy level in batched forwards at down ratio 1.
+codes each hierarchy level in batched forwards at down ratio 1. DeformB
+codes at rate level s = level; Flex-Rate takes each B-frame's (n, l) from
+its RD point's table by the frame's hierarchy level
+(``gop.rate_control.flexrate_rate_for_frame``).
 
 Weights: ``{intra_weights}/latest.msgpack`` and
 ``{inter_weights}/latest.msgpack`` (tpuvc's flax checkpoints, converted by
 ``params_from_jax``) when present, seeded weights otherwise. Runs on
-``--device`` (default ``cuda``; no quiet fallback to the CPU). Families
-``flexrate``, ``deform_b`` and ``dmc``, ``write_plots`` and
-``device_count > 1`` are not ported yet and exit naming their ROADMAP.md
-item.
+``--device`` (default ``cuda``; no quiet fallback to the CPU). Family
+``dmc``, ``write_plots`` and ``device_count > 1`` are not ported yet and
+exit naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import math
 import os
 import time
 
 #: What tpuvc's test CLI does that the port does not yet, and where
 #: ROADMAP.md queues it.
 NOT_PORTED_FAMILIES = {
-    "flexrate": "ROADMAP.md queue A, A11 (Flex-Rate v2)",
-    "deform_b": "ROADMAP.md queue A, A12 (v3 DeformB)",
     "dmc": "ROADMAP.md queue A, A14 (DMC P-frame)",
 }
 
@@ -66,6 +67,14 @@ def build_models(cfg, rng_seed: int = 0):
         from tpuvc_torch.models.lhbdc import LHBDC
 
         model = LHBDC(N=mc.N, generator=g)
+    elif mc.family == "flexrate":
+        from tpuvc_torch.models.flexrate import BidirFlowRef
+
+        model = BidirFlowRef(N=mc.N, generator=g)
+    elif mc.family == "deform_b":
+        from tpuvc_torch.models.deform_b import DeformB
+
+        model = DeformB(N=mc.N, M=mc.M, levels=mc.levels, generator=g)
     elif mc.family == "flowguided_b":
         from tpuvc_torch.models.flowguided_b import FlowGuidedB
 
@@ -103,6 +112,22 @@ def make_frame_fns(cfg, intra_pack, inter_pack, level: int, ratios=None):
             out = model(r1, xc, r2, "dequantize")
             return out["x_hat"], out["bits"]
 
+    elif fam == "flexrate":
+        from tpuvc_torch.gop.rate_control import flexrate_rate_for_frame
+
+        def inter_fn(r1, r2, xc, order, o1, o2):
+            d = max(abs(o2 - o1), 1)
+            hier = max(1, int(round(math.log2(16 / d))) + 1)
+            n, l = flexrate_rate_for_frame(level, hier)
+            out = model(r1, xc, r2, n, l, "dequantize")
+            return out["x_hat"], torch.sum(out["size"])
+
+    elif fam == "deform_b":
+
+        def inter_fn(r1, r2, xc, order, o1, o2):
+            out = model(r1, r2, xc, float(level), "dequantize")
+            return out["x_hat"], out["size"]
+
     elif fam == "flowguided_b":
 
         def inter_fn(r1, r2, xc, order, o1, o2):
@@ -127,9 +152,9 @@ def make_batched_inter_fn(cfg, inter_pack, level: int, gop: int):
     """Level-batched inter forward for eval_sequence_batched.
 
     Frames within one hierarchy level share their temporal geometry (the
-    same v4 scales), so one batched call serves the whole level. The v4
-    per-frame down-ratio search is off on this path (down_ratio 1); the
-    sequential runner is the adaptive one."""
+    same v4 scales, the same Flex-Rate (n, l)), so one batched call serves
+    the whole level. The v4 per-frame down-ratio search is off on this path
+    (down_ratio 1); the sequential runner is the adaptive one."""
     from tpuvc_torch.models.flowguided_b import get_scales
 
     model = inter_pack
@@ -138,6 +163,22 @@ def make_batched_inter_fn(cfg, inter_pack, level: int, gop: int):
 
         def inter_fn(r1, r2, xc, idxs, refs):
             out = model(r1, xc, r2, "dequantize")
+            return out["x_hat"], out["sizes"]
+
+    elif fam == "flexrate":
+        from tpuvc_torch.gop.rate_control import flexrate_rate_for_frame
+
+        def inter_fn(r1, r2, xc, idxs, refs):
+            d = max(abs(refs[0][1] - refs[0][0]), 1)
+            hier = max(1, int(round(math.log2(gop / d))) + 1)
+            n, l = flexrate_rate_for_frame(level, hier)
+            out = model(r1, xc, r2, n, l, "dequantize")
+            return out["x_hat"], out["size"]
+
+    elif fam == "deform_b":
+
+        def inter_fn(r1, r2, xc, idxs, refs):
+            out = model(r1, r2, xc, float(level), "dequantize")
             return out["x_hat"], out["sizes"]
 
     elif fam == "flowguided_b":

@@ -35,12 +35,13 @@ def _lrelu(x):
 
 class MeanScaleHyperprior(nn.Module):
     """Generic mean-scale hyperprior over ``out_channels`` signal channels
-    (the input has as many channels as the output)."""
+    (the input has as many channels as the output unless ``in_channels``
+    says otherwise)."""
 
     out_channels: int = 3
 
     def __init__(self, N: int = 128, out_channels: int | None = None,
-                 zero_init_out: bool = False):
+                 zero_init_out: bool = False, in_channels: int | None = None):
         super().__init__()
         if out_channels is not None:
             self.out_channels = out_channels
@@ -50,7 +51,7 @@ class MeanScaleHyperprior(nn.Module):
         self.gaussian = GaussianConditional()
 
         ga = []
-        cin = C
+        cin = C if in_channels is None else in_channels
         for _ in range(3):
             ga += [ResidualBlockWithStride(cin, N), ResidualBlock(N, N)]
             cin = N
@@ -148,6 +149,11 @@ class HyperpriorCoder:
     ``synthesize``) on the same shapes under the same dtype policy; with
     deterministic kernels (tpuvc_torch.ops.precision.set_deterministic) they
     compute bit-identical entropy parameters, which the rANS decode needs.
+
+    ``*rate`` in the coding methods are the extra arguments of the module's
+    rate-dependent transforms (``analyze_quantized``, ``params_idx``,
+    ``synthesize``): none for a plain hyperprior, a gained one's (n, l)
+    (tpuvc_torch.models.flexrate.GainedHyperpriorCoder).
     """
 
     def __init__(self, module: MeanScaleHyperprior):
@@ -217,15 +223,15 @@ class HyperpriorCoder:
             y_string, y_idx, t.cdfs, t.cdf_lengths, t.offsets
         ).reshape(y_idx.shape)
 
-    def compress(self, x: torch.Tensor) -> dict:
-        return self.compress_from(*self.analyze_quantized(x))
+    def compress(self, x: torch.Tensor, *rate) -> dict:
+        return self.compress_from(*self.analyze_quantized(x, *rate), *rate)
 
     @torch.no_grad()
-    def compress_from(self, y, z_sym_dev, z_hat) -> dict:
+    def compress_from(self, y, z_sym_dev, z_hat, *rate) -> dict:
         """Host half of compress, from a precomputed (y, z symbols, z_hat)
         triple; the whole batch goes into one stream pair."""
         z_string = self._encode_z(z_sym_dev.cpu().numpy())
-        means, y_idx_dev = self.params_idx(z_hat)
+        means, y_idx_dev = self.params_idx(z_hat, *rate)
         y_sym_dev = quantize(y, "symbols16", means=means)
         y_string = self._encode_y(y_sym_dev.cpu().numpy(), y_idx_dev.cpu().numpy())
         return {
@@ -234,8 +240,12 @@ class HyperpriorCoder:
             "y_hat": y_sym_dev.float() + means,
         }
 
+    def compress_batch(self, x: torch.Tensor, *rate) -> dict:
+        """compress_batch_from of this coder's own analysis of ``x``."""
+        return self.compress_batch_from(*self.analyze_quantized(x, *rate), *rate)
+
     @torch.no_grad()
-    def compress_batch_async(self, y, z_sym_dev, z_hat) -> dict:
+    def compress_batch_async(self, y, z_sym_dev, z_hat, *rate) -> dict:
         """Batched compress with PER-SAMPLE streams: the device phase runs
         now; the host phase (symbol fetch + per-sample rANS) on a worker.
 
@@ -245,7 +255,7 @@ class HyperpriorCoder:
         """
         from tpuvc_torch.coder.parallel import async_pool, parallel_map
 
-        means, y_idx_dev = self.params_idx(z_hat)
+        means, y_idx_dev = self.params_idx(z_hat, *rate)
         y_sym_dev = quantize(y, "symbols16", means=means)
 
         def host_phase():
@@ -264,14 +274,14 @@ class HyperpriorCoder:
             "y_hat": y_sym_dev.float() + means,
         }
 
-    def compress_batch_from(self, y, z_sym_dev, z_hat) -> dict:
+    def compress_batch_from(self, y, z_sym_dev, z_hat, *rate) -> dict:
         """Blocking variant of compress_batch_async."""
-        out = self.compress_batch_async(y, z_sym_dev, z_hat)
+        out = self.compress_batch_async(y, z_sym_dev, z_hat, *rate)
         out["strings"] = out.pop("strings_future").result()
         return out
 
     @torch.no_grad()
-    def decompress_batch(self, strings: list, shape) -> torch.Tensor:
+    def decompress_batch(self, strings: list, shape, *rate) -> torch.Tensor:
         """Batched decompress of per-sample (y_str, z_str) pairs: host rANS
         per sample, device transforms once at batch B (compress_batch's
         shapes). Returns y_hat (B, ...)."""
@@ -286,7 +296,7 @@ class HyperpriorCoder:
             )
         )
         z_hat = torch.from_numpy(z_sym).to(self.device).float() + self.z_medians
-        means, y_idx_dev = self.params_idx(z_hat)
+        means, y_idx_dev = self.params_idx(z_hat, *rate)
         y_idx = y_idx_dev.cpu().numpy()
         y_sym = np.stack(
             parallel_map(
@@ -296,7 +306,7 @@ class HyperpriorCoder:
         )
         return torch.from_numpy(y_sym).to(self.device).float() + means
 
-    def decompress_batch_async(self, strings: list, shape):
+    def decompress_batch_async(self, strings: list, shape, *rate):
         """decompress_batch on a worker thread -> Future[y_hat].
 
         A hyperprior's entropy decode does not depend on the references (z
@@ -305,16 +315,16 @@ class HyperpriorCoder:
         phases hide behind the device work of earlier levels."""
         from tpuvc_torch.coder.parallel import async_pool
 
-        return async_pool().submit(self.decompress_batch, strings, shape)
+        return async_pool().submit(self.decompress_batch, strings, shape, *rate)
 
     @torch.no_grad()
-    def decompress(self, strings, shape, batch: int = 1) -> torch.Tensor:
+    def decompress(self, strings, shape, *rate, batch: int = 1) -> torch.Tensor:
         """Inverse of compress: one stream pair for the whole batch."""
         y_string, z_string = strings
         zh, zw = shape
         z_sym = self._decode_z(z_string, (batch, zh, zw, self.module.N))
         z_hat = torch.from_numpy(z_sym).to(self.device).float() + self.z_medians
-        means, y_idx_dev = self.params_idx(z_hat)
+        means, y_idx_dev = self.params_idx(z_hat, *rate)
         y_sym = self._decode_y(y_string, y_idx_dev.cpu().numpy())
         y_hat = torch.from_numpy(y_sym).to(self.device).float() + means
-        return self.synthesize(y_hat)
+        return self.synthesize(y_hat, *rate)

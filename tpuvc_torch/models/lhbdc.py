@@ -221,11 +221,11 @@ class LHBDCCoder:
         batch = x_before.shape[0]
         flow_ba, flow_ab = self._motion_priors(x_before, x_after)
         flow_hat = self.mv_coder.decompress(
-            [bitstream.mv_y, bitstream.mv_z], bitstream.mv_shape, batch
+            [bitstream.mv_y, bitstream.mv_z], bitstream.mv_shape, batch=batch
         )
         x_pred = self._compensate(x_before, x_after, flow_ba, flow_ab, flow_hat)
         res_hat = self.res_coder.decompress(
-            [bitstream.res_y, bitstream.res_z], bitstream.res_shape, batch
+            [bitstream.res_y, bitstream.res_z], bitstream.res_shape, batch=batch
         )
         return x_pred + res_hat
 

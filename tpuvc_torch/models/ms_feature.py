@@ -6,7 +6,8 @@
 - TemporalEnc: pyramid encoder of conditioning features to an M-channel
   prior at /16;
 - Reconstructor: top-down fusion of the three compensated scales to RGB
-  (v4's subpel variant).
+  (v4's subpel variant); ReconstructorDeconv: the same with kernel-3
+  transposed convs (v3).
 
 flax infers input widths from the data; here each module is told them.
 Submodule names are tpuvc's flax auto-names (``_ConvRBB_0``,
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tpuvc_torch.models.layers import Conv, ResidualBottleneckBlock, SubpelConv
+from tpuvc_torch.models.layers import Conv, Deconv, ResidualBottleneckBlock, SubpelConv
 
 
 def _named(module: nn.Module, prefix: str, items) -> None:
@@ -113,23 +114,42 @@ class TemporalEnc(nn.Module):
 class Reconstructor(nn.Module):
     """Top-down decoder fusing the 3 compensated scales -> RGB (v4 subpel)."""
 
+    UP = "SubpelConv"  # name of the x2 upsampling layers
+
     def __init__(self, channels: tuple[int, int, int] = (64, 96, 128)):
         super().__init__()
         c1, c2, c3 = channels
         _named(self, "ResidualBottleneckBlock",
                [ResidualBottleneckBlock(c) for c in (c3, c2, c1) for _ in range(3)])
-        _named(self, "SubpelConv",
-               [SubpelConv(c3, c3, r=2), SubpelConv(c2, c2, r=2), SubpelConv(c1, 3, r=2)])
+        _named(self, self.UP, self._ups(c1, c2, c3))
         _named(self, "Conv", [Conv(c2 + c3, c2, kernel=1), Conv(c1 + c2, c1, kernel=1)])
 
-    def _blocks(self, x, first):
-        for i in range(first, first + 3):
-            x = getattr(self, f"ResidualBottleneckBlock_{i}")(x)
-        return x
+    @staticmethod
+    def _ups(c1, c2, c3):
+        return [SubpelConv(c3, c3, r=2), SubpelConv(c2, c2, r=2), SubpelConv(c1, 3, r=2)]
+
+    def _stage(self, x, i):
+        for j in range(3 * i, 3 * i + 3):
+            x = getattr(self, f"ResidualBottleneckBlock_{j}")(x)
+        return getattr(self, f"{self.UP}_{i}")(x)
 
     def forward(self, x1, x2, x3):
-        l3 = self.SubpelConv_0(self._blocks(x3, 0))
-        l2 = self.Conv_0(torch.cat([x2, l3], dim=-1))
-        l2 = self.SubpelConv_1(self._blocks(l2, 3))
+        l3 = self._stage(x3, 0)
+        l2 = self._stage(self.Conv_0(torch.cat([x2, l3], dim=-1)), 1)
         l1 = self.Conv_1(torch.cat([x1, l2], dim=-1))
-        return self.SubpelConv_2(self._blocks(l1, 6))
+        return self._stage(l1, 2)
+
+
+class ReconstructorDeconv(Reconstructor):
+    """v3's variant: kernel-3, stride-2 transposed convs (``Deconv_0..2``) in
+    place of the subpel convs."""
+
+    UP = "Deconv"
+
+    def __init__(self, channels: tuple[int, int, int] = (32, 64, 96)):
+        super().__init__(channels)
+
+    @staticmethod
+    def _ups(c1, c2, c3):
+        return [Deconv(c3, c3, kernel=3, stride=2), Deconv(c2, c2, kernel=3, stride=2),
+                Deconv(c1, 3, kernel=3, stride=2)]

@@ -1,7 +1,11 @@
-"""The LHBDC occlusion-mask UNet (port of tpuvc.models.unet.MaskUNet).
+"""UNets (port of tpuvc.models.unet).
 
-A 3-down/3-up conv UNet over the two warped predictions with a sigmoid
-single-channel output and bilinear x2 upsampling in the decoder.
+- MaskUNet: the LHBDC occlusion mask, a 3-down/3-up conv UNet over the two
+  warped predictions with a sigmoid single-channel output and bilinear x2
+  upsampling in the decoder;
+- UNet: the Flex-Rate flow predictor and blend mask, ``depth`` levels of
+  widths 2**(wf+i), leaky-ReLU 0.1, avg-pool down, bilinear x2 up and skip
+  concatenation.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuvc_torch.models.layers import Conv
+from tpuvc_torch.models.ms_feature import _named
 from tpuvc_torch.ops.resample import bilinear_resize
 
 
@@ -52,3 +57,55 @@ class MaskUNet(nn.Module):
         x = torch.cat([_up2(x), c1], dim=-1)
         x = F.relu(self.Conv_6(x))
         return torch.sigmoid(self.Conv_7(x))
+
+
+def _avgpool2(x):
+    b, h, w, c = x.shape
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+
+
+def _lrelu(x):
+    return F.leaky_relu(x, 0.1)
+
+
+class UNet(nn.Module):
+    """UNet with ``depth`` levels of widths 2**(wf+i): two 3x3 convs a level,
+    avg-pool down, a mid conv, then per level up a bilinear x2 upsample,
+    a 3x3 conv, the skip concatenated and two 3x3 convs; a final 3x3 conv.
+    Its convs are ``Conv_0..`` in tpuvc's (flax's) creation order."""
+
+    def __init__(self, in_features: int, out_channels: int = 4, depth: int = 5,
+                 wf: int = 5):
+        super().__init__()
+        self.depth = depth
+        convs, cin = [], in_features
+        for i in range(depth):
+            w = 2 ** (wf + i)
+            convs += [Conv(cin, w, kernel=3), Conv(w, w, kernel=3)]
+            cin = w
+        convs.append(Conv(cin, 2 ** (wf + depth - 1), kernel=3))
+        cin = 2 ** (wf + depth - 1)
+        for i in reversed(range(depth - 1)):
+            w = 2 ** (wf + i)
+            convs += [Conv(cin, w, kernel=3), Conv(2 * w, w, kernel=3),
+                      Conv(w, w, kernel=3)]
+            cin = w
+        convs.append(Conv(cin, out_channels, kernel=3))
+        self.n_convs = len(convs)
+        _named(self, "Conv", convs)
+
+    def forward(self, x):
+        convs = iter(getattr(self, f"Conv_{i}") for i in range(self.n_convs))
+        skips = []
+        for i in range(self.depth):
+            x = _lrelu(next(convs)(x))
+            x = _lrelu(next(convs)(x))
+            if i < self.depth - 1:
+                skips.append(x)
+                x = _avgpool2(x)
+        x = _lrelu(next(convs)(x))
+        for i in reversed(range(self.depth - 1)):
+            x = torch.cat([next(convs)(_up2(x)), skips[i]], dim=-1)
+            x = _lrelu(next(convs)(x))
+            x = _lrelu(next(convs)(x))
+        return next(convs)(x)

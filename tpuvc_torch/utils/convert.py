@@ -9,7 +9,9 @@ parameter path becomes a state-dict key by joining it with dots, except:
   ``context_prediction_models``) are ``nn.ModuleList`` entries
   ``g_a_layers.3`` here;
 - conv kernels are HWIO in flax and OIHW here (``kernel`` -> ``weight``);
-  a ``DeformConv``'s HWIO kernel is named ``weight`` in flax too;
+  a ``DeformConv``'s HWIO kernel is named ``weight`` in flax too (the only
+  4-D ``weight`` in tpuvc's trees, under ``DeformConv_0`` in v4 and under
+  ``deconv_l{1,2,3}_{1,2}`` in v3);
   SPyNet's ``conv{i}_kernel``/``conv{i}_bias`` are ``conv{i}.weight/bias``;
 - a transposed conv's flax kernel (kH, kW, in, out) is the spatially
   flipped torch ``ConvTranspose2d`` weight (in, out, kH, kW), and tpuvc's
@@ -17,7 +19,8 @@ parameter path becomes a state-dict key by joining it with dots, except:
   into the Deconv itself;
 - GDN ``beta``/``gamma``, the entropy bottleneck's ``matrix_i``,
   ``bias_i``, ``factor_i`` and ``quantiles``, and CondELIC's ``Gain``,
-  ``InverseGain``, ``HyperGain`` and ``InverseHyperGain`` copy verbatim
+  ``InverseGain``, ``HyperGain`` and ``InverseHyperGain``, and Flex-Rate's
+  ``gain_matrix`` copy verbatim
   (same reparametrisation, same orientation).
 
 tpuvc/utils/torch_import.py holds the same mapping in the other direction.
@@ -73,9 +76,7 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
             parts.pop()
             if name == "kernel":
                 arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
-        elif name == "kernel" or (
-            name == "weight" and parts and parts[-1].startswith("DeformConv")
-        ):
+        elif name == "kernel" or (name == "weight" and arr.ndim == 4):
             arr = arr.transpose(3, 2, 0, 1)
         if name == "kernel":
             name = "weight"
