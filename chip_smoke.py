@@ -8,11 +8,13 @@ against its plain PyTorch version at the shapes the paths give it, and
 drives the paths with seeded weights: LHBDC(N=128) codes a GOP-16, 2-GOP
 window of 1088x1920 B-frames at batch 4 to real rANS streams, FlowGuidedB
 (v4, full width) and DeformB (v3, full width) code the same window at batch
-2 and Flex-Rate (v2, N=128) at batch 4, the encode_v / decode_v
-CLIs code whole synthetic sequences (ELIC intra + B-frames) to a file and
-back, the RD-eval CLI evaluates a sequence, FlowGuidedB codes at every
-down ratio, and bench_torch.py runs bench.py's measurement; each decode
-must reproduce its encoder's reconstructions bit for bit. Each phase runs
+2 and Flex-Rate (v2, N=128) at batch 4, the DMC P-frame codec (feat 48,
+N 64) codes a chain of 1088x1920 P-frames, the encode_v / decode_v and
+encode_p / decode_p CLIs code whole synthetic sequences (ELIC intra + B-
+or P-frames) to a file and back, the RD-eval CLI evaluates a sequence,
+FlowGuidedB codes at every down ratio, and bench_torch.py runs bench.py's
+measurement; each decode must reproduce its encoder's reconstructions bit
+for bit. Each phase runs
 under its own time limit and prints JSON lines:
 
   device             card name, power limit, software versions
@@ -30,7 +32,8 @@ under its own time limit and prints JSON lines:
   reference_check    small LHBDC forward on the card vs the same on the CPU
   reference_check_v4 small full-width FlowGuidedB forward, card vs CPU
   reference_check_v3 the same for DeformB, reference_check_flexrate for
-                     Flex-Rate
+                     Flex-Rate, reference_check_dmc for DMC (two chained
+                     P-frames at down ratios 1.0 and 1.5)
   main_path          LHBDC: B-frames/s, bpp, PSNR, decode_bit_exact, warp
                      launches, peak device memory
   main_path_v4       FlowGuidedB: the same, with deform launches and the
@@ -38,6 +41,11 @@ under its own time limit and prints JSON lines:
   main_path_v3       DeformB: the same (deform launches, offset spread)
   main_path_flexrate Flex-Rate: the same (warp launches, the predicted
                      flow's and coded refinement's spread)
+  main_path_dmc      DMC at batch 1 from a source-frame DPB: 16 chained
+                     P-frames at down ratio 1.0, then 4 at 1.5, encoded
+                     (encode_async) and decoded (decode_sequence): P-frames/s,
+                     bpp, PSNR, decode_bit_exact, warp launches, the spread
+                     of SPyNet's flow and of the decoded MV, peak memory
   sequence_cli       the port's CLIs as a user runs them: encode_v codes
                      synthetic 1088x1920 frames (ELIC intra anchors and
                      B-frames) to one file, decode_v decodes it in another
@@ -49,6 +57,10 @@ under its own time limit and prints JSON lines:
                      the down ratios --adaptive chose
   sequence_cli_v3_flexrate  the same for DeformB and Flex-Rate, level-batched
                      33 frames each at their windows' batch caps
+  sequence_cli_dmc   encode_p --adaptive on 17 synthetic 1088x1920 frames
+                     (ELIC I-frame, 16 DMC P-frames), decode_p in a fresh
+                     process: frames/s, intra ms per frame, bpp, the down
+                     ratios chosen, decode_bit_exact by sha256, peak memory
   eval_cli           the RD-eval CLI (tpuvc_torch.cli.test) on 17 frames:
                      FlowGuidedB sequential with the down-ratio search and
                      MS-SSIM in float32, LHBDC level-batched at batch cap 8
@@ -56,6 +68,9 @@ under its own time limit and prints JSON lines:
                      bpp, down ratios chosen, launches
   eval_cli_v3_flexrate  the same for DeformB (batch cap 2) and Flex-Rate
                      (batch cap 4), level-batched, bfloat16
+  eval_cli_dmc       the same for DMC: low-delay, the fractional ratio
+                     search, float32, with the ratios chosen read back from
+                     its per-frame diagnostics CSV
   adaptive_ratios    FlowGuidedB coded at down ratios 2, 4, 8, 16, each
                      stream decoded bit for bit
   bench_torch        bench_torch.py in a subprocess: its last record must
@@ -90,7 +105,8 @@ WARP_OPS_PER_ELEMENT = 20  # coordinates, weights and the 4-tap blend
 
 # Shapes of the main path's warps: SPyNet's finest and coarsest pyramid
 # levels (two flows batched at B=4), motion compensation at B=4, the DMC
-# context-warp width at an unaligned size, and one zero-padded warp.
+# context-warp width at an unaligned size and at its path's, and one
+# zero-padded warp.
 # Every other shape a path launches is checked after the paths ran
 # (path_shapes_check).
 WARP_SHAPES = [
@@ -121,6 +137,9 @@ WARP_SHAPES = [
     # frame), B=2 (level 0 of a 2-GOP window); B=4 is the row above.
     ("flexrate", (1, 1088, 1920, 3)),
     ("flexrate", (2, 1088, 1920, 3)),
+    # DMC's motion compensation: the 48-channel feature warp (the frame's
+    # own is the exact (1, 1088, 1920, 3) row above).
+    ("exact", (1, 1088, 1920, 48)),
 ]
 
 # The coded window: bench.py's frame size and GOP, two GOPs.
@@ -338,11 +357,12 @@ SEEDED_FAMILIES = ("flowguided_b", "deform_b", "flexrate")
 
 def _family(model) -> str:
     from tpuvc_torch.models.deform_b import DeformB
+    from tpuvc_torch.models.dmc import PFrameDMC
     from tpuvc_torch.models.flexrate import BidirFlowRef
     from tpuvc_torch.models.flowguided_b import FlowGuidedB
 
     for cls, name in ((FlowGuidedB, "flowguided_b"), (DeformB, "deform_b"),
-                      (BidirFlowRef, "flexrate")):
+                      (BidirFlowRef, "flexrate"), (PFrameDMC, "dmc")):
         if isinstance(model, cls):
             return name
     raise TypeError(f"no zero-initialised heads known for {type(model).__name__}")
@@ -385,8 +405,13 @@ def spread_points(model) -> dict:
     """{key: (module, pick(args, out))}: where each family's flows and
     offsets can be read. FlowGuidedB: FlowNET's flow and the offsets of the
     three deform convs (L1..L3); DeformB: the offsets of each level's first
-    deform conv; Flex-Rate: the predicted flow and the coded refinement."""
+    deform conv; Flex-Rate: the predicted flow and the coded refinement;
+    DMC: SPyNet's flow and the decoded MV (``mv_out``, lecun-normal when
+    seeded, so no head needs seeding)."""
     family = _family(model)
+    if family == "dmc":
+        return {"flow": (model.optic_flow, lambda a, o: o),
+                "mv": (model.mv_out, lambda a, o: o)}
     if family == "flexrate":
         return {"flow": (model.flow_predictor, lambda a, o: o),
                 "refinement": (model.flow_compressor.g_s_layers[-1], lambda a, o: o)}
@@ -420,7 +445,7 @@ def spread_hooks(torch, model, spread: dict) -> list:
 
 #: The keys of each family's spread_points.
 SPREAD_KEYS = {"flowguided_b": {"flow", "L1", "L2", "L3"}, "deform_b": {"L1", "L2", "L3"},
-               "flexrate": {"flow", "refinement"}}
+               "flexrate": {"flow", "refinement"}, "dmc": {"flow", "mv"}}
 
 
 def check_spread(spread: dict, where: str, family: str = "flowguided_b") -> None:
@@ -499,6 +524,14 @@ def flexrate_model(torch, N=128, seed=0, **kw):
     return _seeded(torch, BidirFlowRef, seed, N=N, **kw)
 
 
+def dmc_model(torch, seed=0, **kw):
+    """PFrameDMC at its canonical width (feat 48, N 64, tpuvc's encode_p
+    defaults), seeded weights."""
+    from tpuvc_torch.models.dmc import PFrameDMC
+
+    return PFrameDMC(generator=torch.Generator().manual_seed(seed), **kw)
+
+
 def reference_check(torch) -> dict:
     """A small LHBDC forward on the card (warp kernel, cuDNN, float32 with
     TF32 off) against the same model on the CPU (plain warp). Convolutions
@@ -569,6 +602,24 @@ def reference_check_flexrate(torch) -> dict:
         torch, "reference_check_flexrate", "Flex-Rate N=128, refinement seeded, n=1 l=0.66",
         flexrate_model(torch, seed=3),
         lambda m, x1, xc, x2: m(x1, xc, x2, 1, 0.66, "dequantize"))
+
+
+def reference_check_dmc(torch) -> dict:
+    """Two chained P-frames from a DPB on the first frame: the second at
+    down ratio 1.0, the third at 1.5 (the antialiased resize and SPyNet at
+    a padded size)."""
+
+    def forward(m, x1, xc, x2):
+        dpb = {"ref_frame": x1, "ref_feature": None, "ref_down_ratio": 1.0}
+        outs = []
+        for x, ratio in ((xc, 1.0), (x2, 1.5)):
+            outs.append(m(x, dpb, ratio, "dequantize"))
+            dpb = outs[-1]["dpb"]
+        return {"x_hat": torch.cat([o["x_hat"] for o in outs]),
+                "size": torch.stack([o["bits"] for o in outs])}
+
+    return card_vs_cpu(torch, "reference_check_dmc", "PFrameDMC feat 48 N 64, ratios 1.0, 1.5",
+                       dmc_model(torch, seed=3), forward)
 
 
 def drive_window(torch, coder, phase_name: str, model: str, B: int, family: str,
@@ -815,9 +866,115 @@ def main_path_flexrate(torch) -> dict:
     return row
 
 
+# main_path_dmc's chain: P-frames at down ratio 1.0, then at the fractional
+# ratio, and the warm-up chain before them.
+DMC_CHAIN = ((1.0, 16), (1.5, 4))
+DMC_WARM = ((1.0, 2), (1.5, 1))
+
+
+def code_p_chain(torch, coder, frames, dpb, runs, q=0.0):
+    """Encode ``runs`` ((ratio, n) pairs) of chained P-frames from ``dpb``
+    with encode_async (at most 4 streams pending, as encode_p), then decode
+    each run with decode_sequence from the decoder's own DPB. Returns
+    (per run: (ratio, streams, encode s, decode s, encoder recons, decoded
+    recons, warp launches)); the recons are clamped, as each side's DPB
+    holds them."""
+    enc_dpb, dec_dpb = dpb, dict(dpb)
+    i, out = 0, []
+    for ratio, n in runs:
+        warps = read_launches()["warp"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futs, recons = [], []
+        for _ in range(n):
+            i += 1
+            if len([f for f in futs if not f.done()]) >= 4:
+                futs[-4].result()
+            fut, enc_dpb = coder.encode_async(frames(i), enc_dpb, ratio=ratio, q=q)
+            futs.append(fut)
+            recons.append(enc_dpb["ref_frame"])
+        bits = [f.result() for f in futs]
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        xs, dec_dpb = coder.decode_sequence(dec_dpb, bits)
+        dec = [torch.clamp(x, 0.0, 1.0) for x in xs]
+        torch.cuda.synchronize()
+        out.append((ratio, bits, t_enc, time.perf_counter() - t0, recons, dec,
+                    read_launches()["warp"] - warps))
+    return out
+
+
+def main_path_dmc(torch) -> dict:
+    """PFrameDMC(feat=48, N=64), seeded weights, at batch 1 and q=0, from a
+    DPB on source frame 0 (bench.py's window starts between source anchors):
+    DMC_WARM's chain warms cuDNN and the allocator, then DMC_CHAIN's is
+    timed with the launch counts set to 0 just before and read just after.
+    Every decoded frame must equal the encoder's reconstruction; SPyNet's
+    flow and the decoded MV of the first warm frame must be fractional."""
+    from tpuvc_torch.data.uvg import SyntheticSequence, device_frame
+    from tpuvc_torch.models.dmc import PFrameDMCCoder
+
+    h, w = FRAME
+    n = sum(k for _, k in DMC_CHAIN)
+    release_cache(torch)  # the evals before it leave tens of GiB cached
+    src = SyntheticSequence(n_frames=n + 1, h=h, w=w)
+    frames = lambda i: device_frame(src.u8(i), "cuda")  # noqa: E731
+    model = dmc_model(torch)
+    coder = PFrameDMCCoder(model, device="cuda")
+    dpb = {"ref_frame": frames(0), "ref_feature": None, "ref_down_ratio": 1.0}
+    spread = {}
+    hooks = spread_hooks(torch, model, spread)
+    try:
+        warm = code_p_chain(torch, coder, frames, dpb, DMC_WARM)
+        for hk in hooks:
+            hk.remove()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        runs = code_p_chain(torch, coder, frames, dpb, DMC_CHAIN)
+        launches = read_launches()
+    finally:
+        coder.close()
+    bit_exact = all(torch.equal(a, b) for r in warm + runs for a, b in zip(r[4], r[5]))
+    recons = torch.cat([x for r in runs for x in r[4]])
+    finite = bool(torch.isfinite(recons).all())
+    src_x = torch.cat([frames(i) for i in range(1, n + 1)])
+    psnr = float((10 * torch.log10(1.0 / ((recons - src_x) ** 2).mean(dim=(1, 2, 3)))).mean())
+    per_ratio = {
+        str(ratio): {"p_frames": len(bits), "encode_fps": len(bits) / t_enc,
+                     "decode_fps": len(bits) / t_dec, "encode_s": t_enc, "decode_s": t_dec,
+                     "bpp": 8 * sum(b.num_bytes for b in bits) / (len(bits) * h * w),
+                     "warp_launches": warps}
+        for ratio, bits, t_enc, t_dec, _, _, warps in runs
+    }
+    t_enc, t_dec = sum(r[2] for r in runs), sum(r[3] for r in runs)
+    row = {
+        "phase": "main_path_dmc", "model": "PFrameDMC feat 48 N 64, seeded weights",
+        "frame": [h, w], "batch": 1, "q": 0.0, "compute_dtype": "float32",
+        "p_frames": n, "encode_fps": n / t_enc, "decode_fps": n / t_dec,
+        "encdec_fps": 2 * n / (t_enc + t_dec), "per_ratio": per_ratio,
+        "bpp": 8 * sum(b.num_bytes for r in runs for b in r[1]) / (n * h * w),
+        "psnr_db": psnr, "decode_bit_exact": bit_exact, "finite": finite,
+        "x_hat_shape": list(recons.shape), "launches": launches, "mv_spread": spread,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(row)
+    if not bit_exact:
+        raise AssertionError("main_path_dmc: decode does not reproduce the encoder's frames")
+    if not finite or list(recons.shape) != [n, h, w, 3]:
+        raise AssertionError(f"main_path_dmc: bad reconstructions, shape {recons.shape}")
+    if [b.ratio_centi for r in runs for b in r[1]] != [
+            round(100 * ratio) for ratio, k in DMC_CHAIN for _ in range(k)]:
+        raise AssertionError("main_path_dmc: a stream carries the wrong down ratio")
+    if launches["warp"] == 0:
+        raise AssertionError("main_path_dmc launched no warp kernel")
+    check_spread(spread, "main_path_dmc", "dmc")
+    return row
+
+
 #: The kernels each family's path must launch.
 FAMILY_KERNELS = {"lhbdc": ["warp"], "flowguided_b": ["warp", "deform"],
-                  "deform_b": ["deform"], "flexrate": ["warp"]}
+                  "deform_b": ["deform"], "flexrate": ["warp"], "dmc": ["warp"]}
 
 # The CLI runs of sequence_cli: (path name, family, encode_v arguments).
 # LHBDC takes bench.py's window settings with real ELIC anchors; FlowGuidedB
@@ -848,23 +1005,25 @@ SEQUENCE_RUNS_V3_FLEXRATE = [
 SEQUENCE_SIZE = ["--width", str(FRAME[1]), "--height", str(FRAME[0])]
 SEQUENCE_MODEL = ["--init", "random", "--device", "cuda"]
 
-# Run in a fresh interpreter by sequence_cli, from the repository root:
-# decode_v.main twice (a cold process, then warm) with FlowGuidedB's heads
-# seeded as in the encoder, printing the launches, wall seconds, peak
-# memory and one sha256 per float32 reconstruction as the last line.
+# Run in a fresh interpreter by sequence_cli and sequence_cli_dmc, from the
+# repository root: the main of the decoding CLI named by the first argument
+# (decode_v or decode_p) on the other arguments, twice (a cold process,
+# then warm), with the zero-initialised heads seeded as in the encoder,
+# printing the launches, wall seconds, peak memory and one sha256 per
+# float32 reconstruction as the last line.
 DECODE_IN_A_NEW_PROCESS = """
-import hashlib, json, sys, time
+import hashlib, importlib, json, sys, time
 import torch
 import chip_smoke
-from tpuvc_torch.cli import decode_v
 from tpuvc_torch.ops import deform, warp
+cli = importlib.import_module("tpuvc_torch.cli." + sys.argv[1])
 out = {}
 for run in ("cold", "warm"):
     warp.warp_kernel.launches = deform.deform_kernel.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with chip_smoke.cli_heads_seeded():
-        rec = decode_v.main(sys.argv[1:])
+        rec = cli.main(sys.argv[2:])
     out[run] = {
         "main_s": time.perf_counter() - t0,
         "launches": {"warp": warp.warp_kernel.launches,
@@ -960,7 +1119,8 @@ def sequence_cli(torch, runs, intra: bool = True) -> list[dict]:
 
             dec_argv = ["--bin", bin_path, "--out_dir", os.path.join(tmp, f"{path}_png")]
             proc = subprocess.run(
-                [sys.executable, "-c", DECODE_IN_A_NEW_PROCESS, *dec_argv, *SEQUENCE_MODEL],
+                [sys.executable, "-c", DECODE_IN_A_NEW_PROCESS, "decode_v", *dec_argv,
+                 *SEQUENCE_MODEL],
                 cwd=root, capture_output=True, text=True, timeout=420,
             )
             if proc.returncode != 0:
@@ -1051,6 +1211,130 @@ def sequence_cli(torch, runs, intra: bool = True) -> list[dict]:
     return rows
 
 
+# sequence_cli_dmc's encode_p run: an I-frame and 16 P-frames, each P-frame's
+# down ratio searched over encode_p's default candidates (1.0, 1.25, 1.5,
+# 2.0, 3.0, 4.0), q=0, float32 (encode_p has no dtype policy).
+SEQUENCE_DMC = ["--synthetic", str(GOP + 1), "--adaptive"]
+
+
+def release_cache(torch) -> float:
+    """Hand this process's cached device memory back to the card, so that a
+    subprocess has it; returns the GiB still reserved."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2**30
+
+
+def sequence_cli_dmc(torch) -> dict:
+    """encode_p as a user runs it, timed, with the launch counts set to 0
+    just before and read just after (no warm-up call: main_path_dmc ran the
+    same model and shapes in this process), decode_p on the file in a fresh
+    process (DECODE_IN_A_NEW_PROCESS), whose per-frame sha256 must equal the
+    encoder's; then ELIC alone at batch 1 (the I-frame of a P sequence),
+    float32."""
+    import collections
+    import hashlib
+    import io
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from tpuvc_torch.cli import encode_p, encode_v
+    from tpuvc_torch.coder.container import PSequenceBitstream
+    from tpuvc_torch.data.uvg import SyntheticSequence, device_frame
+    from tpuvc_torch.eval.metrics import psnr_uint8_np
+
+    h, w = FRAME
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        bin_path = os.path.join(tmp, "dmc.tpvs")
+        enc_argv = SEQUENCE_DMC + SEQUENCE_SIZE + SEQUENCE_MODEL + ["--bin", bin_path]
+        release_cache(torch)
+        torch.cuda.reset_peak_memory_stats()
+        log = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            recons = encode_p.main(enc_argv)
+        main_s = time.perf_counter() - t0
+        enc_launches = read_launches()
+        enc_peak = torch.cuda.max_memory_allocated() / 2**30
+        enc_hashes = {str(i): hashlib.sha256(t.numpy().tobytes()).hexdigest()
+                      for i, t in recons.items()}
+        with open(bin_path, "rb") as f:
+            blob = f.read()
+        seq = PSequenceBitstream.deserialize(blob)
+        n = len(seq.frames)
+        src = SyntheticSequence(n_frames=n, h=h, w=w)
+        psnr = float(np.mean([psnr_uint8_np(src.u8(i)[0, :h, :w], recons[i].numpy())
+                              for i in range(n)]))
+        finite = all(bool(torch.isfinite(t).all()) and tuple(t.shape) == (h, w, 3)
+                     for t in recons.values())
+        del recons
+        reserved_gib = release_cache(torch)
+        proc = subprocess.run(
+            [sys.executable, "-c", DECODE_IN_A_NEW_PROCESS, "decode_p", "--bin", bin_path,
+             "--out_dir", os.path.join(tmp, "png"), *SEQUENCE_MODEL],
+            cwd=root, capture_output=True, text=True, timeout=420,
+        )
+        if proc.returncode != 0:
+            raise AssertionError(f"decode_p failed:\n{proc.stderr[-4000:]}")
+        dec = json.loads(proc.stdout.strip().splitlines()[-1])
+    bit_exact = all(dec[r]["sha256"] == enc_hashes for r in ("cold", "warm"))
+    chosen = re.findall(r"^frame +\d+ P ratio ([0-9.]+)$", log.getvalue(), flags=re.M)
+    enc_s = cli_seconds(log.getvalue(), "wrote")
+    dec_s = cli_seconds(proc.stdout, "decoded")
+    png_s = cli_seconds(proc.stdout, "wrote")
+
+    # ELIC alone at batch 1 on the sequence's first frame: a warm-up, then timed.
+    args = encode_p.build_parser().parse_args(SEQUENCE_MODEL)
+    intra = encode_v.build_intra(args, torch.device("cuda"))
+    x = device_frame(src.u8(0), "cuda")
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = intra.compress(x)
+        y_hat = intra.synthesize(enc["y_hat"])
+        torch.cuda.synchronize()
+        t_ienc = time.perf_counter() - t0
+        dec_i = intra.decompress(enc["strings"], enc["shape"])
+        torch.cuda.synchronize()
+        t_idec = time.perf_counter() - t0 - t_ienc
+    intra_exact = bool(torch.equal(dec_i, y_hat))
+
+    n_i = sum(1 for t, _ in seq.frames if t == "I")
+    row = {
+        "phase": "sequence_cli_dmc", "encode_argv": SEQUENCE_DMC, "frame": [h, w],
+        "frames": n, "i_frames": n_i, "p_frames": n - n_i, "compute_dtype": "float32",
+        "encode_s": enc_s, "encode_fps": n / enc_s, "encode_main_s": main_s,
+        "decode_s": dec_s, "decode_fps": n / dec_s, "decode_png_s": png_s,
+        "decode_fps_without_png": n / (dec_s - png_s),
+        "decode_main_s": dec["warm"]["main_s"],
+        "decode_cold_process_main_s": dec["cold"]["main_s"],
+        "bytes": len(blob), "bpp": 8 * len(blob) / (n * h * w), "psnr_db": psnr,
+        "down_ratios": dict(sorted(collections.Counter(float(r) for r in chosen).items())),
+        "decode_bit_exact": bit_exact, "decoder": "separate process", "finite": finite,
+        "launches_encode": enc_launches, "launches_decode": dec["warm"]["launches"],
+        "launches": {k: enc_launches[k] + dec["warm"]["launches"][k] for k in enc_launches},
+        "peak_mem_gib_encode": enc_peak, "peak_mem_gib_decode": dec["warm"]["peak_mem_gib"],
+        "encoder_process_reserved_gib": reserved_gib,
+        "intra_encode_ms_per_frame": 1e3 * t_ienc, "intra_decode_ms_per_frame": 1e3 * t_idec,
+        "intra_batch": 1, "intra_bit_exact": intra_exact,
+        "intra_model": "ELIC N=192 M=320 groups (16,16,32,64,192), seeded, float32",
+    }
+    emit(row)
+    if not (bit_exact and finite and intra_exact):
+        raise AssertionError("sequence_cli_dmc: the decoder's frames differ or are bad")
+    if len(chosen) != n - n_i:
+        raise AssertionError(f"sequence_cli_dmc: {len(chosen)} searched ratios for {n - n_i} P")
+    if enc_launches["warp"] == 0 or dec["warm"]["launches"]["warp"] == 0:
+        raise AssertionError("sequence_cli_dmc launched no warp kernel")
+    return row
+
+
 # The eval CLI runs of eval_cli: (path name, overrides). FlowGuidedB runs the
 # RD-eval default (sequential, per-frame down-ratio search) with MS-SSIM in
 # float32; LHBDC runs bench.py's eval_fps settings (level-batched, batch
@@ -1068,6 +1352,11 @@ EVAL_RUNS_V3_FLEXRATE = [
     ("flexrate", ["model.family=flexrate", "level_batched=True", "window_gops=2",
                   "max_batch=4", "compute_dtype=bfloat16"]),
 ]
+# DMC's low-delay eval: one I-frame (dmc_intra_period 32 > 17 frames), the
+# default fractional search over dmc_ratios, float32, the diagnostics CSV.
+EVAL_RUNS_DMC = [
+    ("dmc", ["model.family=dmc", "dmc_intra_period=32", "dmc_diag_csv=diag.csv"]),
+]
 
 
 def eval_overrides(path: str, out_dir: str) -> list[str]:
@@ -1080,16 +1369,20 @@ def eval_overrides(path: str, out_dir: str) -> list[str]:
         f"dataset.gop={GOP}", f"dataset.width={w}", f"dataset.height={h}", "levels=(0,)",
         f"output_dir={out_dir}", f"intra_weights={out_dir}/none",
         f"inter_weights={out_dir}/none",
-    ] + dict(EVAL_RUNS + EVAL_RUNS_V3_FLEXRATE)[path]
+    ] + dict(EVAL_RUNS + EVAL_RUNS_V3_FLEXRATE + EVAL_RUNS_DMC)[path]
 
 
-def eval_cli(torch, runs) -> list[dict]:
+def eval_cli(torch, runs, warm: bool = True) -> list[dict]:
     """The port's RD-eval CLI (tpuvc_torch.cli.test) on 17 synthetic
     1088x1920 frames for each of ``runs`` (EVAL_RUNS' form), seeded weights
-    (the zero-initialised heads seeded): a warm-up call, then a timed one
-    with the launch counts set to 0 just before and read just after. One row
+    (the zero-initialised heads seeded): a warm-up call (unless ``warm`` is
+    false, where an earlier phase ran the model at its shapes), then a timed
+    one with the launch counts set to 0 just before and read just after. One row
     per run: frames/s over the eval's wall time, peak device memory, the
-    per-level PSNR and bpp, the down ratios chosen, the launches."""
+    per-level PSNR and bpp, the down ratios chosen (for DMC also as its
+    diagnostics CSV records them), the launches."""
+    import collections
+    import csv
     import io
     import math
     import tempfile
@@ -1103,8 +1396,9 @@ def eval_cli(torch, runs) -> list[dict]:
             argv = ["--device", "cuda"] + eval_overrides(path, tmp)
             spread = {}
             with cli_heads_seeded(spread):
-                with contextlib.redirect_stdout(io.StringIO()):
-                    eval_cli_main.main(argv)  # warm-up
+                if warm:
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        eval_cli_main.main(argv)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 reset_launches()
@@ -1126,6 +1420,11 @@ def eval_cli(torch, runs) -> list[dict]:
                 row["msssim_mean"] = sum(r["msssim"] for r in info.rows) / len(info.rows)
             if path in SEEDED_FAMILIES:
                 row["flow_offset_spread"] = spread
+            if path == "dmc":
+                with open(os.path.join(tmp, "synth_l0_diag.csv")) as f:
+                    diag = list(csv.DictReader(f))
+                row["diag_down_ratios"] = dict(sorted(collections.Counter(
+                    float(r["down_ratio"]) for r in diag if r["type"] == "P").items()))
             emit(row)
             rows.append(row)
             finite = all(math.isfinite(r[k]) for r in info.rows for k in ("psnr", "size"))
@@ -1133,8 +1432,12 @@ def eval_cli(torch, runs) -> list[dict]:
                 raise AssertionError(f"eval_cli {path}: bad per-frame rows")
             if path in SEEDED_FAMILIES:
                 check_spread(spread, f"eval_cli {path}", path)
-            if path == "flowguided_b" and sum(out["down_ratios"].values()) != GOP - 1:
-                raise AssertionError(f"eval_cli: {out['down_ratios']} for {GOP - 1} B-frames")
+            searched = {"flowguided_b": GOP - 1, "dmc": GOP}.get(path)
+            if searched is not None and sum(out["down_ratios"].values()) != searched:
+                raise AssertionError(f"eval_cli {path}: {out['down_ratios']} for {searched} frames")
+            if path == "dmc" and row["diag_down_ratios"] != {
+                    float(k): v for k, v in out["down_ratios"].items()}:
+                raise AssertionError(f"eval_cli dmc: the diagnostics CSV disagrees: {row}")
             for k in FAMILY_KERNELS[path]:
                 if launches[k] == 0:
                     raise AssertionError(f"eval_cli {path} launched no {k} kernel")
@@ -1194,11 +1497,7 @@ def bench_torch_run(torch, budget_s: int = 240) -> dict:
     windows and eval_fps. This process first hands its cached device memory
     back (the eval phase's batch-8 forward leaves ~60 GiB cached), so the
     benchmark has the card to itself."""
-    import gc
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    reserved_gib = torch.cuda.memory_reserved() / 2**30
+    reserved_gib = release_cache(torch)
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, TPUVC_BENCH_BUDGET_S=str(budget_s))
     proc = subprocess.run(
@@ -1287,6 +1586,14 @@ def main() -> int:
         eval_rows = eval_cli(torch, EVAL_RUNS)
     with phase("eval_cli_v3_flexrate", 300):
         eval_rows += eval_cli(torch, EVAL_RUNS_V3_FLEXRATE)
+    with phase("reference_check_dmc", 120):
+        reference_check_dmc(torch)
+    with phase("main_path_dmc", 300):
+        dmc = main_path_dmc(torch)
+    with phase("sequence_cli_dmc", 300):
+        seq_dmc = sequence_cli_dmc(torch)
+    with phase("eval_cli_dmc", 240):
+        eval_rows += eval_cli(torch, EVAL_RUNS_DMC, warm=False)
     with phase("adaptive_ratios", 180):
         adaptive = adaptive_ratios(torch)
     with phase("bench_torch", 480):
@@ -1296,7 +1603,13 @@ def main() -> int:
 
     def by_path(kernel):
         paths = {"lhbdc": lhbdc["launches"][kernel], "flowguided_b": v4["launches"][kernel],
-                 "deform_b": v3["launches"][kernel], "flexrate": flexrate["launches"][kernel]}
+                 "deform_b": v3["launches"][kernel], "flexrate": flexrate["launches"][kernel],
+                 "sequence_cli_dmc": seq_dmc["launches"][kernel]}
+        if kernel == "warp":
+            paths.update({f"dmc_ratio_{r}": v["warp_launches"]
+                          for r, v in dmc["per_ratio"].items()})
+        else:
+            paths["dmc"] = dmc["launches"][kernel]
         paths.update({f"sequence_cli_{r['path']}": r["launches"][kernel] for r in seq_rows})
         paths.update({f"eval_cli_{r['path']}": r["launches"][kernel] for r in eval_rows})
         paths["adaptive_ratios"] = adaptive["launches"][kernel]
@@ -1317,6 +1630,8 @@ def main() -> int:
         "deform": next(r for r in deform_rows if r["level"] == "v3 L1"
                        and r["x_shape"][0] == 2 and r["spread"] == "smooth_5px"),
     }
+    # The warp on the DMC path: its 48-channel feature warp at 1088x1920.
+    dmc_head = next(r for r in warp_rows if r["shape"] == [1, 1088, 1920, 48])
     kernels = []
     for kernel, head, rows, replaces in (
         ("warp", warp_head, warp_rows, "tpuvc/ops/warp_pallas.py:103"),
@@ -1336,6 +1651,9 @@ def main() -> int:
             "v3_flexrate_head": {k: slice_heads[kernel].get(k) for k in (
                 "shape", "x_shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+        if kernel == "warp":
+            kernels[-1]["dmc_head"] = {k: dmc_head[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

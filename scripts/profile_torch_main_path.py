@@ -2,12 +2,15 @@
 
 Run from the repository root:
 
-    python3 scripts/profile_torch_main_path.py [--family lhbdc|flowguided_b|deform_b|flexrate|elic|eval_lhbdc|eval_flowguided_b]
+    python3 scripts/profile_torch_main_path.py [--family lhbdc|flowguided_b|deform_b|flexrate|dmc|elic|eval_lhbdc|eval_flowguided_b]
 
 Codes chip_smoke.py's window (1088x1920, GOP-16, 2 GOPs, bfloat16 policy,
 seeded weights) for one codec family: LHBDC(N=128) at batch 4 (the
 default), FlowGuidedB or DeformB at full width at batch 2, or Flex-Rate
 (N=128) at batch 4 (chip_smoke.py's v4, v3 and Flex-Rate paths); or, with
+``dmc``, four chained DMC P-frames (feat 48, N 64, down ratio 1.0, q 0,
+float32) from a DPB on source frame 0, encoded with encode_async and
+decoded with decode_sequence (chip_smoke.py's main_path_dmc); or, with
 ``elic``, the window's three intra anchors (frames 0, 16,
 32 of encode_v's synthetic sequence) through ELIC (N=192, M=320) at batch
 3, as encode_v's --level_batched codes them; or, with ``eval_lhbdc`` /
@@ -20,9 +23,10 @@ warm up, then encodes and decodes again under torch.profiler, with the
 determinism settings every CLI uses (TF32 off). Prints JSON lines: the
 wall time of each side, the summed device time of all kernels and its
 share of the wall time (the device's busy share; one stream, so kernels do
-not overlap), the device time by kernel family, and the 25 kernels with
-the most device time; every kernel's row goes to
-outputs/profile_<family>.json (ignored by git).
+not overlap), the device time by kernel family, the 25 kernels with the
+most device time, and the 10 convolution calls (by input, weight, stride
+and padding shapes) whose kernels take the most device time; every
+kernel's row goes to outputs/profile_<family>.json (ignored by git).
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ def main() -> int:
         return 2
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--family", default="lhbdc", choices=(
-        "lhbdc", "flowguided_b", "deform_b", "flexrate", "elic", "eval_lhbdc",
+        "lhbdc", "flowguided_b", "deform_b", "flexrate", "dmc", "elic", "eval_lhbdc",
         "eval_flowguided_b"))
     codec = parser.parse_args().family
     sys.path.insert(0, ROOT)
@@ -78,7 +82,28 @@ def main() -> int:
     set_deterministic()  # as every CLI and coder does: TF32 off, fixed algorithms
 
     dtype = "bfloat16"
-    if codec.startswith("eval_"):
+    closers = [parallel.shutdown]
+    if codec == "dmc":
+        from tpuvc_torch.data.uvg import SyntheticSequence, device_frame
+        from tpuvc_torch.models.dmc import PFrameDMCCoder
+
+        coder = PFrameDMCCoder(chip_smoke.dmc_model(torch))
+        closers.append(coder.close)
+        src = SyntheticSequence(n_frames=5, h=1088, w=1920)
+        xs = [device_frame(src.u8(i), "cuda") for i in range(5)]
+        dpb0 = {"ref_frame": xs[0], "ref_feature": None, "ref_down_ratio": 1.0}
+        batch, n_real, dtype = 1, len(xs) - 1, "float32"
+
+        def code_window():
+            dpb, futs = dpb0, []
+            for x in xs[1:]:
+                fut, dpb = coder.encode_async(x, dpb)
+                futs.append(fut)
+            return [f.result() for f in futs]
+
+        def decode_window(bits):
+            return coder.decode_sequence(dpb0, bits)
+    elif codec.startswith("eval_"):
         import contextlib
         import io
 
@@ -149,7 +174,8 @@ def main() -> int:
         with policy_from_name(dtype):
             decode_window(code_window())  # warm-up
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         record_shapes=True) as prof:
                 t0 = time.perf_counter()
                 bits = code_window()
                 torch.cuda.synchronize()
@@ -159,7 +185,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 t_dec = time.perf_counter() - t0
     finally:
-        parallel.shutdown()
+        for close in closers:
+            close()
 
     def dev_us(evt):
         return getattr(evt, "self_device_time_total", None) or getattr(
@@ -191,6 +218,16 @@ def main() -> int:
     ]
     for r in rows[:25]:
         print(json.dumps({**r, "kernel": r["kernel"][:120]}), flush=True)
+    # The convolution ops by shape: device time of the kernels each launched.
+    convs = sorted(
+        (e for e in prof.key_averages(group_by_input_shape=True)
+         if e.key == "aten::cudnn_convolution"),
+        key=lambda e: getattr(e, "device_time_total", 0.0), reverse=True,
+    )
+    for e in convs[:10]:
+        ms = getattr(e, "device_time_total", 0.0) / 1e3
+        print(json.dumps({"conv_input_shapes": str(e.input_shapes)[:160], "calls": e.count,
+                          "device_ms": ms}), flush=True)
     out_dir = os.path.join(ROOT, "outputs")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"profile_{codec}.json"), "w") as f:

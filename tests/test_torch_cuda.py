@@ -1,7 +1,7 @@
 """tpuvc_torch on a CUDA card: the hand-written warp and deform kernels
 against their plain PyTorch versions, and small runs of the LHBDC,
-FlowGuidedB, DeformB and Flex-Rate paths on the card against the same runs
-on the CPU and through their own decoders.
+FlowGuidedB, DeformB, Flex-Rate and DMC paths on the card against the same
+runs on the CPU and through their own decoders.
 
 Marked ``gpu``; each test skips without a card. The card's machine has no
 JAX, so this file imports none and runs as
@@ -559,3 +559,100 @@ def test_msssim_card_matches_cpu(cuda):
     out = float(msssim(a.to(cuda), b.to(cuda)))
     assert 0.0 < ref < 1.0
     assert abs(out - ref) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1, 1088, 1920, 48), (1, 1081, 1917, 48)])
+def test_warp_kernel_at_the_dmc_shapes(cuda, shape):
+    """DMC's 48-channel feature warp (exact mode) at its path's 1088x1920
+    and at an unaligned size: bit for bit with warp_plain."""
+    from tpuvc_torch.ops.warp import warp, warp_plain
+
+    img, flow = (t.to(cuda) for t in _inputs(shape, seed=9))
+    out = warp(img, flow, "exact")
+    ref = warp_plain(img, flow, "exact")
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("ratio", [1.25, 1.5, 2.0, 3.0, 8.75])
+def test_resize_antialias_card_matches_cpu(cuda, ratio):
+    """The antialiased down-sampling of DMC's fractional ratios (two float32
+    weight-matrix products) on the card against the CPU."""
+    from tpuvc_torch.models.dmc import resize_antialias
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.random((1, 192, 256, 3), dtype=np.float32))
+    h = max(int(round(192 / ratio)) // 8 * 8, 64)
+    w = max(int(round(256 / ratio)) // 8 * 8, 64)
+    ref = resize_antialias(x, h, w)
+    out = resize_antialias(x.to(cuda), h, w).cpu()
+    assert out.shape == ref.shape == (1, h, w, 3)
+    assert float((out - ref).abs().max()) <= 1e-6
+
+
+def _dmc_frames(n, h, w, seed):
+    """(n, h, w, 3) frames drifting from one seeded base."""
+    rng = np.random.default_rng(seed)
+    base = rng.random((1, h, w, 3), dtype=np.float32)
+    drift = 0.03 * rng.standard_normal((n, h, w, 3)).astype(np.float32)
+    return torch.from_numpy(np.clip(base + np.cumsum(drift, axis=0), 0, 1))
+
+
+def _dmc_model():
+    from tpuvc_torch.models.dmc import PFrameDMC
+
+    return PFrameDMC(feat=16, N=32, generator=torch.Generator().manual_seed(0))
+
+
+def test_dmc_forward_card_matches_cpu(cuda):
+    """Two chained P-frames (down ratios 1.0, 1.5) at 128x128 on the card
+    against the CPU, at chip_smoke's bars."""
+    model = _dmc_model().eval()
+    xs = _dmc_frames(3, 128, 128, seed=13)
+    outs = []  # per device: [(x_hat, bits)] per frame
+    with torch.no_grad():
+        for dev in ("cpu", cuda):
+            model.to(dev)
+            dpb = {"ref_frame": xs[0:1].to(dev), "ref_feature": None, "ref_down_ratio": 1.0}
+            outs.append([])
+            for i, ratio in ((1, 1.0), (2, 1.5)):
+                out = model(xs[i : i + 1].to(dev), dpb, ratio, "dequantize")
+                outs[-1].append((out["x_hat"].cpu(), float(out["bits"])))
+                dpb = out["dpb"]
+    for (x_ref, b_ref), (x_out, b_out) in zip(*outs):
+        assert float((x_out - x_ref).abs().max()) <= 1e-4 * max(1.0, float(x_ref.abs().max()))
+        assert abs(b_out - b_ref) <= 1e-5 * b_ref
+
+
+def test_dmc_round_trip_on_card(cuda):
+    """PFrameDMCCoder on the card at 128x192: three chained P-frames at down
+    ratios 1.0, 1.5, 1.5, encoded with encode_async and decoded both by
+    decode_sequence and frame by frame with decode; every reconstruction and
+    the final DPB equal the encoder's bit for bit, through the warp
+    kernel."""
+    from tpuvc_torch.models.dmc import PFrameDMCCoder
+    from tpuvc_torch.ops.warp import warp_kernel
+
+    coder = PFrameDMCCoder(_dmc_model(), device=cuda)
+    xs = _dmc_frames(4, 128, 192, seed=14).to(cuda)
+    dpb = {"ref_frame": xs[0:1], "ref_feature": None, "ref_down_ratio": 1.0}
+    warp_kernel.launches = 0
+    try:
+        enc_dpb, futs, recons = dpb, [], []
+        for i, ratio in ((1, 1.0), (2, 1.5), (3, 1.5)):
+            fut, enc_dpb = coder.encode_async(xs[i : i + 1], enc_dpb, ratio=ratio, q=0.5)
+            futs.append(fut)
+            recons.append(enc_dpb["ref_frame"])
+        bits = [f.result() for f in futs]
+        xs_dec, dec_dpb = coder.decode_sequence(dpb, bits)
+        folded = dpb
+        for b, r in zip(bits, recons):
+            x_hat, folded = coder.decode(folded, b)
+            assert torch.equal(torch.clamp(x_hat, 0, 1), r)
+    finally:
+        coder.close()
+    assert [b.ratio_centi for b in bits] == [100, 150, 150]
+    assert all(torch.equal(torch.clamp(x, 0, 1), r) for x, r in zip(xs_dec, recons))
+    for k in ("ref_frame", "ref_feature", "ref_mv_feature", "ref_y", "ref_mv_y"):
+        assert torch.equal(dec_dpb[k], enc_dpb[k]) and torch.equal(folded[k], enc_dpb[k])
+    assert warp_kernel.launches > 0

@@ -20,6 +20,15 @@ on the same small packs, frames and configuration, on the CPU.
   and 5, each B-frame's (n, l) from the point's table by its hierarchy
   level; the flow refinement's synthesis seeded.
 
+- DMC (tpuvc's test size: feat 16, N 32) low-delay at rate level 1 on 5
+  frames of a 128x128 texture moving 2 px a frame (I P P P P), the
+  fractional search over 1.0, 1.25, 1.5, 2.0 on a near-constant SPyNet
+  flow (``dmc_params(flow=-1.25)``), with the per-frame diagnostics CSV.
+  Its bits are held at 1e-4 relative: tpuvc's float32 totals of DMC's
+  likelihoods carry up to 5e-5 of accumulation rounding against their
+  float64 sum (tests/test_torch_dmc.py holds the bits at 1e-6 on float64
+  sums).
+
 All use ELIC (N=16, M=24) for the I-frames. Per-frame rows match: PSNR
 within 1e-4 dB, bits within 1e-5 relative (float32 totals, ROADMAP.md C),
 MS-SSIM within 1e-5; the chosen ratios are equal. Both configurations are
@@ -37,6 +46,7 @@ import torch
 
 from torch_params_common import (
     V4_KW,
+    dmc_params,
     filled_params,
     translating_frames,
     v4_constant_flow_params,
@@ -65,10 +75,14 @@ def setup(tmp_path_factory):
     from tpuvc_torch.models.flowguided_b import FlowGuidedB
     from tpuvc_torch.models.lhbdc import LHBDC
 
+    from tpuvc_torch.models.dmc import PFrameDMC
+
     root = tmp_path_factory.mktemp("eval_cli")
-    (root / "moving").mkdir()
-    for i, img in enumerate(translating_frames(9, 64, 64)):
-        save_png(str(root / "moving" / f"{i:03d}.png"), img)
+    for name, n, hw in (("moving", 9, 64), ("moving128", 5, 128)):
+        (root / name).mkdir()
+        for i, img in enumerate(translating_frames(n, hw, hw)):
+            save_png(str(root / name / f"{i:03d}.png"), img)
+    jdmc, dmc = dmc_params(flow=-1.25)
     lhbdc, elic = write_sequence_checkpoints(root)
     jv4, v4 = v4_constant_flow_params(flow=3.0)
     x64, x128 = jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 128, 128, 3))
@@ -94,6 +108,7 @@ def setup(tmp_path_factory):
         "flowguided_b": ((jv4, v4), port(FlowGuidedB(**V4_KW), v4)),
         "deform_b": ((jv3, v3), port(DeformB(**V3_KW), v3)),
         "flexrate": ((jfr, fr), port(BidirFlowRef(**FLEXRATE_KW), fr)),
+        "dmc": ((jdmc, dmc), port(PFrameDMC(feat=16, N=32), dmc)),
     }
 
 
@@ -126,12 +141,12 @@ def _run_both(setup, family, overrides, monkeypatch):
     return tinfo.rows, jinfo.dataframe().to_dict("records"), ratios, scores
 
 
-def _check_rows(prows, jrows):
+def _check_rows(prows, jrows, size_rel=1e-5):
     key = ("video", "level", "frame_num", "type", "pixels")
     assert [tuple(r[k] for k in key) for r in prows] == [tuple(r[k] for k in key) for r in jrows]
     for p, j in zip(prows, jrows):
         assert abs(p["psnr"] - j["psnr"]) <= 1e-4, (p, j)
-        assert p["size"] == pytest.approx(j["size"], rel=1e-5), (p, j)
+        assert p["size"] == pytest.approx(j["size"], rel=size_rel), (p, j)
         if "msssim" in j:
             assert abs(p["msssim"] - j["msssim"]) <= 1e-5, (p, j)
 
@@ -186,8 +201,50 @@ def test_run_levels_v3_and_flexrate_match_tpuvc(setup, monkeypatch, run):
     _check_rows(prows, jrows)
 
 
+def test_run_levels_dmc_matches_tpuvc(setup, monkeypatch, tmp_path):
+    """DMC's low-delay level (``_run_dmc_level``): the same rows, the same
+    ratio choices (each search's decisions with a clear margin) and the
+    same diagnostics CSV, up to each package's float32 PSNR and bits."""
+    import csv
+
+    from tpuvc.eval import results_io as jio
+
+    write = jio.PerFrameDiagnostics.write
+    monkeypatch.setattr(jio.PerFrameDiagnostics, "write",
+                        lambda self, path: write(self, path + ".tpuvc"))
+    ratios_list = (1.0, 1.25, 1.5, 2.0)
+    prows, jrows, ratios, scores = _run_both(setup, "dmc", [
+        "dataset.name=UVG", "dataset.sequences={'moving128': 5}", "levels=(1,)",
+        "dmc_intra_period=5", f"dmc_ratios={ratios_list}", "adaptive_down_ratio=True",
+        "dmc_diag_csv=diag.csv", f"output_dir={tmp_path}",
+    ], monkeypatch)
+    assert [r["type"] for r in prows] == ["I", "P", "P", "P", "P"]
+    _check_rows(prows, jrows, size_rel=1e-4)
+    # Four searches of four candidates (the diagnostics' warp PSNR is one
+    # more psnr_of call a P-frame in each package).
+    port_ps, ref_ps = (np.array(scores[k]).reshape(4, 5)[:, :4] for k in ("port", "tpuvc"))
+    assert np.abs(port_ps - ref_ps).max() <= 1e-3
+    top2 = np.sort(ref_ps, axis=1)[:, -2:]
+    assert (top2[:, 1] - top2[:, 0]).min() >= 0.01
+    path = str(tmp_path / "moving128_l1_diag.csv")
+    trows, jrows_csv = (list(csv.DictReader(open(f))) for f in (path, path + ".tpuvc"))
+    assert open(path).readline() == open(path + ".tpuvc").readline()
+    chosen = [float(r["down_ratio"]) for r in trows if r["type"] == "P"]
+    assert chosen == [float(r["down_ratio"]) for r in jrows_csv if r["type"] == "P"]
+    assert ratios == collections.Counter(chosen) and set(chosen) <= set(ratios_list)
+    for t, j in zip(trows, jrows_csv):
+        assert (t["frame"], t["type"]) == (j["frame"], j["type"])
+        for k in ("psnr", "warp_psnr"):
+            if j[k]:
+                assert abs(float(t[k]) - float(j[k])) <= 1e-4, (k, t, j)
+        for k in ("bits", "bpp", "bits_mv", "bits_y"):
+            if j[k]:
+                assert float(t[k]) == pytest.approx(float(j[k]), rel=1e-4), (k, t, j)
+            else:
+                assert t[k] == j[k] == ""
+
+
 @pytest.mark.parametrize("override, match", [
-    ("model.family=dmc", "A14"),
     ("write_plots=True", "A16"),
     ("device_count=2", "A16"),
 ])

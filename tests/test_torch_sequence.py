@@ -1,7 +1,8 @@
 """The port's whole-sequence path against tpuvc on the CPU: the sequence
 schedule, the decoded picture buffer, the VSequenceBitstream byte layout,
 PSNR, synthetic frames and PNG writing, and round trips of the port's
-encode_v/decode_v and encode_b/decode_b CLIs (``--device cpu``).
+encode_v/decode_v, encode_b/decode_b and encode_p/decode_p CLIs
+(``--device cpu``).
 
 The CLI runs use tpuvc's tests/test_vseq_cli.py model sizes (LHBDC and
 Flex-Rate N=32, ELIC N=16 M=24 groups (4, 4, 16)) on 9 synthetic 64x64
@@ -9,10 +10,15 @@ frames at GOP 4; FlowGuidedB and DeformB run at their full width, as
 tpuvc's CLI builds them. Their zero-initialised heads (v4's flow and
 offset heads, v3's offset heads, Flex-Rate's flow refinement) are seeded
 (``chip_smoke.cli_heads_seeded``). Each decode must equal the encoder's
-reconstructions bit for bit (``torch.equal``).
+reconstructions bit for bit (``torch.equal``). The low-delay CLIs code
+5 synthetic 128x128 frames (I P P P I) with DMC at tpuvc's test size
+(feat 16, N 32), so the fractional ratios really down-sample.
 """
 
+import contextlib
+import io
 import os
+import re
 import struct
 
 import jax.numpy as jnp
@@ -21,7 +27,7 @@ import pytest
 import torch
 
 import chip_smoke
-from torch_params_common import write_sequence_checkpoints
+from torch_params_common import write_dmc_checkpoints, write_sequence_checkpoints
 from tpuvc.coder import container as jcont
 from tpuvc.data import uvg as juvg
 from tpuvc.eval import metrics as jmet
@@ -282,6 +288,70 @@ def test_encode_decode_b_v3_and_flexrate_round_trip(tmp_path, family, rate, mode
         assert jcont.VFrameBitstream.deserialize(blob).s_milli == 1500
 
 
+P_SMALL = [
+    "--synthetic", "5", "--width", "128", "--height", "128", "--intra_period", "4",
+    "--init", "random", "--feat", "16", "--N", "32",
+    "--intra_N", "16", "--intra_M", "24", "--intra_groups", "4,4,16", "--device", "cpu",
+]
+P_MODEL_ARGS = P_SMALL[P_SMALL.index("--init"):]
+P_CASES = {
+    "fixed_ratio": ["--ratio", "1.5", "--q", "1.25"],
+    "adaptive": ["--adaptive", "--ratios", "1.0,1.25,1.5,2.0"],
+}
+
+
+@pytest.mark.parametrize("case", list(P_CASES))
+def test_encode_decode_p_round_trip_is_bit_exact(tmp_path, case):
+    """encode_p then decode_p: every decoded frame equals the encoder's
+    reconstruction, in tpuvc's PSequenceBitstream / PFrameBitstream layout,
+    each P-frame's header carrying the ratio coded (with --adaptive: the
+    one the search printed)."""
+    from tpuvc_torch.cli import decode_p, encode_p
+
+    bin_path, out_dir = str(tmp_path / "seq.tpvs"), str(tmp_path / "dec")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        enc = encode_p.main(P_SMALL + P_CASES[case] + ["--bin", bin_path])
+    dec = decode_p.main(P_MODEL_ARGS + ["--bin", bin_path, "--out_dir", out_dir,
+                                        "--synthetic", "5"])
+    assert sorted(enc) == sorted(dec) == list(range(5))
+    for i in range(5):
+        assert enc[i].shape == (128, 128, 3)
+        assert torch.equal(enc[i], dec[i]), i
+    assert sorted(os.listdir(out_dir)) == [f"frame_{i:05d}.png" for i in range(5)]
+    seq = jcont.PSequenceBitstream.deserialize(open(bin_path, "rb").read())
+    assert (seq.width, seq.height) == (128, 128)
+    assert [t for t, _ in seq.frames] == ["I", "P", "P", "P", "I"]
+    ratios = [jcont.PFrameBitstream.deserialize(b).ratio_centi for t, b in seq.frames if t == "P"]
+    printed = [round(100 * float(r)) for r in
+               re.findall(r"^frame +\d+ P ratio ([0-9.]+)$", log.getvalue(), flags=re.M)]
+    assert ratios == printed
+    if case == "fixed_ratio":
+        assert ratios == [150] * 3
+    else:
+        assert set(ratios) <= {100, 125, 150, 200}
+
+
+def test_encode_p_loads_tpuvc_checkpoints(tmp_path):
+    """--init load reads tpuvc's DMC and ELIC msgpack checkpoints."""
+    from tpuvc_torch.cli import encode_p
+
+    wdir = tmp_path / "weights"
+    wdir.mkdir()
+    trees = write_dmc_checkpoints(wdir)
+    args = encode_p.build_parser().parse_args(
+        ["--init", "load", "--feat", "16", "--N", "32", "--intra_N", "16", "--intra_M", "24",
+         "--intra_groups", "4,4,16", "--weights_dmc", str(wdir / "dmc.msgpack"),
+         "--weights_intra", str(wdir / "elic.msgpack")])
+    intra, p_coder = encode_p.build_codecs(args, torch.device("cpu"))
+    p_coder.close()
+    w = trees["dmc"]["params"]["y_coder"]["adaptors_2"]["kernel"]
+    assert np.array_equal(p_coder.model.y_coder.adaptors[2].weight.detach().numpy(),
+                          np.asarray(w).transpose(3, 2, 0, 1))
+    assert np.array_equal(p_coder.model.mv_coder.inv_gain.detach().numpy(),
+                          trees["dmc"]["params"]["mv_coder"]["inv_gain"])
+
+
 @pytest.mark.parametrize("argv, match", [
     (["--family", "flowguided_b", "--adaptive", "--level_batched"], "sequential mode"),
     (["--level_batched", "--mesh", "2"], "A16"),
@@ -305,3 +375,10 @@ def test_clis_default_to_cuda_without_fallback(tmp_path):
         decode_v.main(["--bin", str(tmp_path / "x.tpvb")])
     with pytest.raises(RuntimeError, match="CUDA"):
         encode_b.main(["--init", "random"])
+    from tpuvc_torch.cli import decode_p, encode_p
+
+    argv = [a for a in P_SMALL if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        encode_p.main(argv + ["--bin", str(tmp_path / "x.tpvs")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decode_p.main(["--bin", str(tmp_path / "x.tpvs")])

@@ -1,5 +1,5 @@
-"""The port's encode_v against tpuvc's encode_v on the same frames and the
-same weights, on the CPU.
+"""The port's encode_v and encode_p against tpuvc's on the same frames and
+the same weights, on the CPU.
 
 Both CLIs run with ``--init load`` from checkpoints that tpuvc's
 ``save_checkpoint`` wrote (tpuvc's tests/test_vseq_cli.py model sizes,
@@ -12,13 +12,22 @@ same order, so tpuvc's decode_v replays the port's files in the order it
 expects. tpuvc's reconstructions are read off its coders as encode_v
 calls them: every frame must be within the LHBDC/ELIC forward bar of the
 port's (2e-5 absolute; ROADMAP.md C).
+
+encode_p codes 5 frames of a texture moving 2 px a frame (128x128 PNGs;
+I P P P I) with DMC at tpuvc's test size (feat 16, N 32), whose SPyNet
+emits a near-constant flow (``dmc_params(flow=-1.25)``), with
+``--adaptive`` over 1.0, 1.25, 1.5, 2.0: every search's decision has a
+margin of at least 0.01 dB (checked), so both packages must choose the
+same ratios. Each
+reconstruction must lie within the forward bar of tpuvc's, and the file
+sizes within 1%; the streams need not be byte-equal (ROADMAP.md C).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from torch_params_common import write_sequence_checkpoints
+from torch_params_common import translating_frames, write_dmc_checkpoints, write_sequence_checkpoints
 from tpuvc.coder import container as jcont
 from tpuvc.models.elic import ELICCoder as JELICCoder
 from tpuvc.models.lhbdc import LHBDCCoder as JLHBDCCoder
@@ -111,3 +120,75 @@ def test_encode_v_matches_tpuvc(tmp_path, monkeypatch, load_args, mode):
         for idx, x_ref in zip(order[typ], ref_frames):
             np.testing.assert_allclose(recons[idx].numpy(), x_ref[:64, :64], atol=2e-5, rtol=0,
                                        err_msg=f"{typ} frame {idx}")
+
+
+def test_encode_p_matches_tpuvc(tmp_path, monkeypatch):
+    from tpuvc.cli import encode_p as jencode_p
+    from tpuvc.gop import adaptive as ja
+    from tpuvc.models.dmc import PFrameDMCCoder as JPFrameDMCCoder
+    from tpuvc_torch.cli import encode_p
+    from tpuvc_torch.data.frames import save_png
+    from tpuvc_torch.gop import adaptive as ta
+
+    (tmp_path / "moving").mkdir()
+    for i, img in enumerate(translating_frames(5, 128, 128)):
+        save_png(str(tmp_path / "moving" / f"{i:03d}.png"), img)
+    write_dmc_checkpoints(tmp_path, flow=-1.25)
+    argv = ["--frames", str(tmp_path / "moving"), "--intra_period", "4", "--adaptive",
+            "--ratios", "1.0,1.25,1.5,2.0", "--q", "0.5", "--init", "load",
+            "--weights_dmc", str(tmp_path / "dmc.msgpack"),
+            "--weights_intra", str(tmp_path / "elic.msgpack"),
+            "--feat", "16", "--N", "32", "--intra_N", "16", "--intra_M", "24",
+            "--intra_groups", "4,4,16"]
+    scores = {"port": [], "tpuvc": []}
+    for key, mod in (("port", ta), ("tpuvc", ja)):
+        def psnr_spy(pred, x, _orig=mod.psnr_of, _key=key):
+            p = _orig(pred, x)
+            scores[_key].append(float(p))
+            return p
+        monkeypatch.setattr(mod, "psnr_of", psnr_spy)
+
+    port_bin, ref_bin = str(tmp_path / "port.tpvs"), str(tmp_path / "ref.tpvs")
+    recons = encode_p.main(argv + ["--device", "cpu", "--bin", port_bin])
+
+    ref_recons = []
+    synthesize, encode_async = JELICCoder.synthesize, JPFrameDMCCoder.encode_async
+
+    def spy_synthesize(self, y_hat):
+        out = synthesize(self, y_hat)
+        ref_recons.append(np.clip(np.asarray(out[0], np.float32), 0.0, 1.0))
+        return out
+
+    def spy_encode_async(self, *a, **kw):
+        fut, dpb = encode_async(self, *a, **kw)
+        ref_recons.append(np.asarray(dpb["ref_frame"][0], np.float32))
+        return fut, dpb
+
+    monkeypatch.setattr(JELICCoder, "synthesize", spy_synthesize)
+    monkeypatch.setattr(JPFrameDMCCoder, "encode_async", spy_encode_async)
+    jencode_p.main(argv + ["--bin", ref_bin])
+
+    port_blob, ref_blob = open(port_bin, "rb").read(), open(ref_bin, "rb").read()
+    port = tcont.PSequenceBitstream.deserialize(port_blob)
+    ref = jcont.PSequenceBitstream.deserialize(ref_blob)
+    assert (port.width, port.height) == (ref.width, ref.height) == (128, 128)
+    assert [t for t, _ in port.frames] == [t for t, _ in ref.frames] == ["I", "P", "P", "P", "I"]
+    headers = [[(b.q_milli, b.ratio_centi, b.z_shape) for b in
+                (cls.deserialize(blob) for t, blob in seq.frames if t == "P")]
+               for cls, seq in ((tcont.PFrameBitstream, port), (jcont.PFrameBitstream, ref))]
+    assert headers[0] == headers[1]
+    # Three searches of four candidates: the packages' scores agree, and
+    # each decision (the best candidate, and whether it beats the previous
+    # frame's ratio by the 0.1 dB bias) has a clear margin.
+    port_ps, ref_ps = (np.array(scores[k]).reshape(3, 4) for k in ("port", "tpuvc"))
+    assert np.abs(port_ps - ref_ps).max() <= 1e-3
+    top2 = np.sort(ref_ps, axis=1)[:, -2:]
+    assert (top2[:, 1] - top2[:, 0]).min() >= 0.01
+    prev = [0] + [[100, 125, 150, 200].index(r) for _, r, _ in headers[1][:-1]]
+    gain = ref_ps.max(axis=1) - ref_ps[np.arange(3), prev]
+    assert np.all((gain == 0) | (np.abs(gain - 0.1) >= 0.01))
+    assert abs(len(port_blob) / len(ref_blob) - 1.0) <= 0.01
+    assert len(ref_recons) == 5
+    for i, x_ref in enumerate(ref_recons):
+        np.testing.assert_allclose(recons[i].numpy(), x_ref[:128, :128], atol=2e-5, rtol=0,
+                                   err_msg=f"frame {i}")

@@ -28,7 +28,8 @@ def _leaf(name: str, shape, rng):
         return 1.0 + 0.1 * np.abs(rng.standard_normal(shape))
     if name == "gamma":
         return np.sqrt(0.1 * np.eye(shape[0])) + 0.01 * np.abs(rng.standard_normal(shape))
-    if name.endswith("Gain") or name == "gain_matrix":  # CondELIC's, Flex-Rate's
+    if name.endswith("Gain") or name in ("gain_matrix", "gain", "inv_gain"):
+        # CondELIC's, Flex-Rate's, DMC's
         return np.exp(0.2 * rng.standard_normal(shape))
     if name.startswith("bias") or name.endswith("_bias"):
         return 0.02 * rng.standard_normal(shape)
@@ -75,6 +76,52 @@ def write_sequence_checkpoints(wdir):
     save_checkpoint(str(wdir / "compression_845.msgpack"), lhbdc)
     save_checkpoint(str(wdir / "elic.msgpack"), elic)
     return lhbdc, elic
+
+
+def dmc_params(seed: int = 6, flow: float | None = None, feat: int = 16, N: int = 32):
+    """Seeded PFrameDMC parameters (tpuvc's test size by default). With
+    ``flow``, SPyNet emits a near-constant horizontal flow of ``flow`` px
+    on 128x128 inputs (three pyramid levels): each block's last conv
+    kernel is scaled to 0.01 and its bias zeroed, the finest used block's
+    (basic_2's) bias set to (flow, 0). At down ratio r the warp-only
+    prediction then shifts the reference by about flow * 128 / w px (w the
+    down-sampled width), so the ratio search's candidates differ clearly
+    on a translating texture. Returns (flax module, variables)."""
+    import jax.numpy as jnp
+
+    from tpuvc.models.dmc import PFrameDMC
+
+    model = PFrameDMC(feat=feat, N=N)
+    x = jnp.zeros((1, 64, 64, 3))
+    dpb = {"ref_frame": x, "ref_feature": None, "ref_down_ratio": 1.0}
+    v = filled_params(lambda: model.init(jax.random.key(0), x, dpb, 1.0, "dequantize"),
+                      seed=seed)
+    if flow is not None:
+        for i in range(6):
+            block = v["params"]["optic_flow"][f"basic_{i}"]
+            block["conv4_kernel"] = block["conv4_kernel"] * np.float32(0.01)
+            block["conv4_bias"] = np.zeros(2, np.float32)
+        v["params"]["optic_flow"]["basic_2"]["conv4_bias"] = np.array([flow, 0.0], np.float32)
+    return model, v
+
+
+def write_dmc_checkpoints(wdir, flow: float | None = None):
+    """``dmc_params(flow=flow)`` and ELIC (N=16, M=24, groups (4, 4, 16))
+    checkpoints, written by tpuvc's save_checkpoint into ``wdir`` as
+    encode_p's ``--init load`` reads them: ``dmc.msgpack`` and
+    ``elic.msgpack``. Returns both trees by name."""
+    import jax.numpy as jnp
+
+    from tpuvc.models.elic import ELIC
+    from tpuvc.utils.checkpoint import save_checkpoint
+
+    x = jnp.zeros((1, 64, 64, 3))
+    _, dmc = dmc_params(flow=flow)
+    elic = filled_params(lambda: ELIC(N=16, M=24, groups=(4, 4, 16)).init(
+        jax.random.key(0), x, "dequantize"), seed=5)
+    save_checkpoint(str(wdir / "dmc.msgpack"), dmc)
+    save_checkpoint(str(wdir / "elic.msgpack"), elic)
+    return {"dmc": dmc, "elic": elic}
 
 
 #: FlowGuidedB at tests/test_flowguided.py's narrow widths.

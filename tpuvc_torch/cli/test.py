@@ -15,14 +15,19 @@ down ratio by the flow-only prediction search
 codes each hierarchy level in batched forwards at down ratio 1. DeformB
 codes at rate level s = level; Flex-Rate takes each B-frame's (n, l) from
 its RD point's table by the frame's hierarchy level
-(``gop.rate_control.flexrate_rate_for_frame``).
+(``gop.rate_control.flexrate_rate_for_frame``). Family ``dmc`` runs the
+low-delay protocol instead: I-frames every ``dmc_intra_period``, chained
+DMC P-frames at rate level q = level, each P-frame's down ratio chosen
+from ``dmc_ratios`` by the fractional search with hysteresis
+(``adaptive_down_ratio``), and a per-frame diagnostics CSV when
+``dmc_diag_csv`` is set.
 
 Weights: ``{intra_weights}/latest.msgpack`` and
 ``{inter_weights}/latest.msgpack`` (tpuvc's flax checkpoints, converted by
 ``params_from_jax``) when present, seeded weights otherwise. Runs on
-``--device`` (default ``cuda``; no quiet fallback to the CPU). Family
-``dmc``, ``write_plots`` and ``device_count > 1`` are not ported yet and
-exit naming their ROADMAP.md item.
+``--device`` (default ``cuda``; no quiet fallback to the CPU).
+``write_plots`` and ``device_count > 1`` are not ported yet and exit naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -33,18 +38,8 @@ import math
 import os
 import time
 
-#: What tpuvc's test CLI does that the port does not yet, and where
-#: ROADMAP.md queues it.
-NOT_PORTED_FAMILIES = {
-    "dmc": "ROADMAP.md queue A, A14 (DMC P-frame)",
-}
-
-
 def check_unported(cfg) -> None:
-    fam = cfg.model.family
-    if fam in NOT_PORTED_FAMILIES:
-        raise SystemExit(f"family {fam!r} is not ported to tpuvc_torch yet: "
-                         f"{NOT_PORTED_FAMILIES[fam]}")
+    """Exit on the options whose tpuvc code paths are not ported yet."""
     if cfg.write_plots:
         raise SystemExit("write_plots is not ported to tpuvc_torch yet: "
                          "ROADMAP.md queue A, A16 (eval/plots.py)")
@@ -54,8 +49,8 @@ def check_unported(cfg) -> None:
 
 
 def build_models(cfg, rng_seed: int = 0):
-    """(ELIC at full width, the family's B model), weights drawn from one
-    ``torch.Generator`` seeded with ``rng_seed``."""
+    """(ELIC at full width, the family's inter model), weights drawn from
+    one ``torch.Generator`` seeded with ``rng_seed``."""
     import torch
 
     from tpuvc_torch.models.elic import ELIC
@@ -82,9 +77,30 @@ def build_models(cfg, rng_seed: int = 0):
             N=mc.N, M=mc.M, levels=mc.levels,
             feature_channels=tuple(mc.feature_channels), generator=g,
         )
+    elif mc.family == "dmc":
+        from tpuvc_torch.models.dmc import PFrameDMC
+
+        # DMC's canonical size (feat 48, N 64), whatever the B families'
+        # model.N says, as tpuvc builds it.
+        model = PFrameDMC(generator=g)
     else:
         raise ValueError(f"unknown model family: {mc.family}")
     return intra, model
+
+
+def make_intra_fn(intra):
+    """ELIC's likelihood forward: x -> (x_hat, bits)."""
+    import torch
+
+    def intra_fn(x):
+        out = intra(x, "dequantize")
+        bits = sum(
+            -torch.sum(torch.log2(torch.clamp(p, min=1e-9)))
+            for p in out["likelihoods"].values()
+        )
+        return out["x_hat"], bits
+
+    return intra_fn
 
 
 def make_frame_fns(cfg, intra_pack, inter_pack, level: int, ratios=None):
@@ -95,16 +111,8 @@ def make_frame_fns(cfg, intra_pack, inter_pack, level: int, ratios=None):
     from tpuvc_torch.gop.adaptive import best_down_ratio_prediction
     from tpuvc_torch.models.flowguided_b import get_scales
 
-    intra, model = intra_pack, inter_pack
+    intra_fn, model = make_intra_fn(intra_pack), inter_pack
     fam = cfg.model.family
-
-    def intra_fn(x):
-        out = intra(x, "dequantize")
-        bits = sum(
-            -torch.sum(torch.log2(torch.clamp(p, min=1e-9)))
-            for p in out["likelihoods"].values()
-        )
-        return out["x_hat"], bits
 
     if fam == "lhbdc":
 
@@ -146,6 +154,39 @@ def make_frame_fns(cfg, intra_pack, inter_pack, level: int, ratios=None):
     else:
         raise ValueError(fam)
     return intra_fn, inter_fn
+
+
+def make_dmc_fns(cfg, intra_pack, inter_pack, level: int, ratios=None):
+    """(intra_fn, pframe_fn, ratio_for_frame) for the low-delay DMC eval: the
+    likelihood forward at q = level, and the fractional down-ratio search
+    over ``cfg.dmc_ratios`` with hysteresis toward the previous frame's
+    ratio. ``ratios``, a Counter, counts the ratio each P-frame was coded
+    at."""
+    from tpuvc_torch.gop.adaptive import fractional_ratio_search, psnr_of
+
+    model = inter_pack
+    q = float(level)
+    want_diag = bool(cfg.dmc_diag_csv)
+
+    def pframe_fn(x, dpb, ratio):
+        out = model(x, dpb, ratio, "dequantize", q=q)
+        # Device scalars; the runner fetches them at the end of the sequence.
+        extras = ({"warp_psnr": psnr_of(out["warped"], x), "bits_mv": out["bits_mv"],
+                   "bits_y": out["bits_y"]} if want_diag else {})
+        return out["x_hat"], out["bits"], out["dpb"], extras
+
+    def ratio_for_frame(x, dpb):
+        ratio = 1.0
+        if cfg.adaptive_down_ratio:
+            ratio, _, _ = fractional_ratio_search(
+                lambda r: model.warp_prediction(x, dpb["ref_frame"], r), x,
+                prev_ratio=dpb.get("ref_down_ratio"), ratios=tuple(cfg.dmc_ratios),
+            )
+        if ratios is not None:
+            ratios[ratio] += 1
+        return ratio
+
+    return make_intra_fn(intra_pack), pframe_fn, ratio_for_frame
 
 
 def make_batched_inter_fn(cfg, inter_pack, level: int, gop: int):
@@ -256,35 +297,25 @@ def main(argv=None):
 
 def _run_levels(cfg, intra_pack, inter_pack, info, device):
     """Evaluate every level x sequence of ``cfg`` into ``info``; returns a
-    Counter of the down ratios FlowGuidedB's search chose."""
+    Counter of the down ratios FlowGuidedB's (or DMC's) search chose."""
     import torch
 
-    from tpuvc_torch.data.uvg import SequenceFrames, SyntheticSequence, device_frame
     from tpuvc_torch.eval.runner import eval_sequence, eval_sequence_batched
     from tpuvc_torch.gop.order import get_order_typ_list, sequence_order_from_table
 
     ratios = collections.Counter()
     for level in cfg.levels:
+        if cfg.model.family == "dmc":
+            _run_dmc_level(cfg, intra_pack, inter_pack, level, info, device, ratios)
+            continue
         intra_fn, inter_fn = make_frame_fns(cfg, intra_pack, inter_pack, level, ratios)
         for seq, n_frames in cfg.dataset.sequences.items():
-            if cfg.dataset.name == "synthetic":
-                frames = SyntheticSequence(
-                    n_frames=n_frames, h=cfg.dataset.height, w=cfg.dataset.width,
-                )
-            else:
-                frames = SequenceFrames(os.path.join(cfg.dataset.root, seq), n_frames)
+            frames, dev_frames = _sequence(cfg, seq, n_frames, device)
             if cfg.dataset.gop == 16:
                 order, typ = get_order_typ_list(16, len(frames))
             else:
                 # LHBDC-era protocol: static dyadic tables tiled per GOP.
                 order, typ = sequence_order_from_table(cfg.dataset.gop, len(frames))
-
-            class _Device:
-                """Lazy host-to-device frame access (uint8 uploads): a long
-                sequence never sits on the device at once."""
-
-                def __getitem__(self, i):
-                    return device_frame(frames.u8(i), device)
 
             with torch.inference_mode():
                 if cfg.level_batched:
@@ -295,14 +326,14 @@ def _run_levels(cfg, intra_pack, inter_pack, info, device):
                               f"frames of {seq} (largest k*{gop}+1 prefix)")
                     inter_b = make_batched_inter_fn(cfg, inter_pack, level, gop)
                     psnrs, sizes = eval_sequence_batched(
-                        _Device(), len(frames), gop, intra_fn, inter_b,
+                        dev_frames, len(frames), gop, intra_fn, inter_b,
                         crop_hw=frames.size, video=seq, level=level, info=info,
                         max_batch=cfg.max_batch, compute_msssim=cfg.eval_msssim,
                         window_gops=cfg.window_gops,
                     )
                 else:
                     psnrs, sizes = eval_sequence(
-                        _Device(), order, typ, intra_fn, inter_fn,
+                        dev_frames, order, typ, intra_fn, inter_fn,
                         crop_hw=frames.size, video=seq, level=level, info=info,
                         compute_msssim=cfg.eval_msssim,
                     )
@@ -311,6 +342,55 @@ def _run_levels(cfg, intra_pack, inter_pack, info, device):
                 f"{sum(sizes) / len(sizes) / (frames.size[0] * frames.size[1]):.4f}"
             )
     return ratios
+
+
+def _sequence(cfg, seq: str, n_frames: int, device):
+    """(the sequence's frame source, lazy device access to its frames):
+    host-to-device uploads of uint8 frames, one at a time, so a long
+    sequence never sits on the device at once."""
+    from tpuvc_torch.data.uvg import SequenceFrames, SyntheticSequence, device_frame
+
+    if cfg.dataset.name == "synthetic":
+        frames = SyntheticSequence(n_frames=n_frames, h=cfg.dataset.height,
+                                   w=cfg.dataset.width)
+    else:
+        frames = SequenceFrames(os.path.join(cfg.dataset.root, seq), n_frames)
+
+    class _Device:
+        def __getitem__(self, i):
+            return device_frame(frames.u8(i), device)
+
+    return frames, _Device()
+
+
+def _run_dmc_level(cfg, intra_pack, inter_pack, level, info, device, ratios):
+    """Low-delay DMC RD eval of one rate level: I every dmc_intra_period,
+    chained P-frames, the fractional ratio search, and the per-frame
+    diagnostics CSV ``{seq}_l{level}_{dmc_diag_csv}`` when asked for."""
+    import torch
+
+    from tpuvc_torch.eval.results_io import PerFrameDiagnostics
+    from tpuvc_torch.eval.runner import eval_sequence_lowdelay
+
+    intra_fn, pframe_fn, ratio_for_frame = make_dmc_fns(
+        cfg, intra_pack, inter_pack, level, ratios
+    )
+    for seq, n_frames in cfg.dataset.sequences.items():
+        frames, dev_frames = _sequence(cfg, seq, n_frames, device)
+        diag = PerFrameDiagnostics() if cfg.dmc_diag_csv else None
+        with torch.inference_mode():
+            psnrs, sizes = eval_sequence_lowdelay(
+                dev_frames, len(frames), cfg.dmc_intra_period, intra_fn, pframe_fn,
+                crop_hw=frames.size, ratio_for_frame=ratio_for_frame, video=seq,
+                level=level, info=info, diagnostics=diag, compute_msssim=cfg.eval_msssim,
+            )
+        if diag is not None:
+            path = os.path.join(cfg.output_dir, f"{seq}_l{level}_{cfg.dmc_diag_csv}")
+            print(f"wrote per-frame diagnostics to {diag.write(path)}")
+        print(
+            f"level {level} {seq}: psnr {sum(psnrs) / len(psnrs):.2f} bpp "
+            f"{sum(sizes) / len(sizes) / (frames.size[0] * frames.size[1]):.4f}"
+        )
 
 
 if __name__ == "__main__":

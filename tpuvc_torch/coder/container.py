@@ -1,7 +1,7 @@
 """Binary containers for coded frames and sequences (the port's copies of
-tpuvc's ``BFrameBitstream``, ``VFrameBitstream``, ``IFrameBitstream`` and
-``VSequenceBitstream``; byte layouts identical, so each package parses the
-other's files).
+tpuvc's ``BFrameBitstream``, ``VFrameBitstream``, ``PFrameBitstream``,
+``IFrameBitstream``, ``VSequenceBitstream`` and ``PSequenceBitstream``; byte
+layouts identical, so each package parses the other's files).
 
 ``BFrameBitstream`` is layout-compatible with the reference's B-frame container
 (LHBDC encode_B/decode_B):
@@ -144,6 +144,54 @@ class VFrameBitstream:
             z_shape=(zh, zw),
             streams=streams,
         )
+
+
+@dataclass
+class PFrameBitstream:
+    """Coded P-frame of the DMC codec: the side information the decoder
+    needs (rate level q in thousandths, the fractional down ratio in
+    hundredths, the latent z shape) and the rANS streams in write order:
+    MV-latent parts 0-3, MV z, frame-latent parts 0-3, frame z.
+
+    Layout (little-endian):
+      uint32 q_milli | uint16 ratio_centi | uint16 zh | uint16 zw |
+      uint8 n_streams | uint32 lengths[n] | stream bytes...
+    """
+
+    q_milli: int
+    ratio_centi: int
+    z_shape: tuple[int, int]
+    streams: list = field(default_factory=list)
+
+    HEADER = "<IHHHB"
+
+    @property
+    def num_bytes(self) -> int:
+        return (
+            struct.calcsize(self.HEADER)
+            + 4 * len(self.streams)
+            + sum(len(s) for s in self.streams)
+        )
+
+    def serialize(self) -> bytes:
+        head = struct.pack(
+            self.HEADER, self.q_milli, self.ratio_centi, self.z_shape[0],
+            self.z_shape[1], len(self.streams),
+        )
+        lens = struct.pack(f"<{len(self.streams)}I", *[len(s) for s in self.streams])
+        return head + lens + b"".join(self.streams)
+
+    @classmethod
+    def deserialize(cls, blob: bytes) -> "PFrameBitstream":
+        hsize = struct.calcsize(cls.HEADER)
+        q_milli, rc, zh, zw, n = struct.unpack(cls.HEADER, blob[:hsize])
+        lens = struct.unpack(f"<{n}I", blob[hsize : hsize + 4 * n])
+        off = hsize + 4 * n
+        streams = []
+        for length in lens:
+            streams.append(blob[off : off + length])
+            off += length
+        return cls(q_milli=q_milli, ratio_centi=rc, z_shape=(zh, zw), streams=streams)
 
 
 @dataclass
@@ -322,3 +370,50 @@ class VSequenceBitstream:
             n_frames=n, frames=frames, mode=mode, max_batch=mb, dtype=dtype,
             window_gops=max(1, wg), mesh=max(1, mesh),
         )
+
+
+@dataclass
+class PSequenceBitstream:
+    """Whole low-delay coded sequence: ELIC I-frames and chained DMC
+    P-frames, the file exchanged by ``tpuvc_torch.cli.encode_p`` /
+    ``decode_p`` (and tpuvc's).
+
+    Layout: b"TPS1" | uint16 width | uint16 height | uint16 n_frames |
+    per frame: uint8 type (0=I, 1=P) | uint32 length | blob.
+    width/height are the unpadded display size; frames are coded padded
+    to x64 and cropped on decode.
+    """
+
+    width: int
+    height: int
+    frames: list = field(default_factory=list)  # [(type_str, blob)]
+
+    MAGIC = b"TPS1"
+    HEADER = "<4sHHH"
+
+    @property
+    def num_bytes(self) -> int:
+        return struct.calcsize(self.HEADER) + sum(5 + len(b) for _, b in self.frames)
+
+    def serialize(self) -> bytes:
+        out = [struct.pack(self.HEADER, self.MAGIC, self.width, self.height,
+                           len(self.frames))]
+        for typ, blob in self.frames:
+            out.append(struct.pack("<BI", 0 if typ == "I" else 1, len(blob)))
+            out.append(blob)
+        return b"".join(out)
+
+    @classmethod
+    def deserialize(cls, blob: bytes) -> "PSequenceBitstream":
+        hsize = struct.calcsize(cls.HEADER)
+        magic, w, h, n = struct.unpack(cls.HEADER, blob[:hsize])
+        if magic != cls.MAGIC:
+            raise ValueError(f"bad sequence magic: {magic!r}")
+        off = hsize
+        frames = []
+        for _ in range(n):
+            t, length = struct.unpack("<BI", blob[off : off + 5])
+            off += 5
+            frames.append(("I" if t == 0 else "P", blob[off : off + length]))
+            off += length
+        return cls(width=w, height=h, frames=frames)

@@ -17,7 +17,7 @@ _ASYNC_POOL: ThreadPoolExecutor | None = None
 _LOCK = threading.Lock()
 
 
-class _CtxPool(ThreadPoolExecutor):
+class CtxPool(ThreadPoolExecutor):
     """ThreadPoolExecutor that runs each task under a copy of the
     SUBMITTER's contextvars context.
 
@@ -43,7 +43,7 @@ def host_pool() -> ThreadPoolExecutor:
     global _POOL
     with _LOCK:
         if _POOL is None:
-            _POOL = _CtxPool(max_workers=min(8, os.cpu_count() or 4))
+            _POOL = CtxPool(max_workers=min(8, os.cpu_count() or 4))
         return _POOL
 
 
@@ -63,7 +63,7 @@ def async_pool() -> ThreadPoolExecutor:
     global _ASYNC_POOL
     with _LOCK:
         if _ASYNC_POOL is None:
-            _ASYNC_POOL = _CtxPool(max_workers=4)
+            _ASYNC_POOL = CtxPool(max_workers=4)
         return _ASYNC_POOL
 
 

@@ -10,8 +10,9 @@ buffer.
 
 Frames stay on the device; each frame's PSNR (and MS-SSIM) is computed as a
 device scalar and the whole sequence's scalars come to the host in one
-transfer at its end. tpuvc's low-delay loop (``eval_sequence_lowdelay``)
-is not ported (ROADMAP.md queue A, A14).
+transfer at its end. ``eval_sequence_lowdelay`` is the low-delay loop of
+the DMC P-frame codec: I-frames every ``intra_period``, chained P-frames in
+between, each through the decoded-picture-buffer dict.
 """
 
 from __future__ import annotations
@@ -97,6 +98,83 @@ def eval_sequence(
             info.update(
                 video, level, order, typ_list[order], psnr_list[order],
                 size_list[order], h * w, **extra,
+            )
+    return psnr_list, size_list
+
+
+def eval_sequence_lowdelay(
+    frames,
+    n_frames: int,
+    intra_period: int,
+    intra_fn: Callable,
+    pframe_fn: Callable,
+    crop_hw: tuple[int, int],
+    ratio_for_frame: Callable | None = None,
+    video: str = "",
+    level: int = 0,
+    info: TestInfographic | None = None,
+    diagnostics=None,
+    compute_msssim: bool = False,
+):
+    """Low-delay P-frame evaluation: I every ``intra_period`` frames, every
+    other frame a P chained through the decoded-picture-buffer dict.
+
+    Args:
+      intra_fn(x) -> (x_hat, size_bits)
+      pframe_fn(x, dpb, ratio) -> (x_hat, size_bits, new_dpb, extras)
+        with extras optionally carrying "warp_psnr"/"bits_mv"/"bits_y"
+        for the per-frame diagnostics ledger.
+      ratio_for_frame(x, dpb) -> down ratio (the fractional search with
+        hysteresis); None -> ratio 1.0 everywhere.
+      diagnostics: optional tpuvc_torch.eval.results_io.PerFrameDiagnostics.
+
+    Returns (psnr_list, size_list) in display order.
+    """
+    h, w = crop_hw
+    dpb = None
+    # The adaptive ratio search is the only data-dependent host decision
+    # in the loop; the per-frame metrics are fetched once at the end.
+    pending: list = []
+    for i in range(n_frames):
+        frame = frames[i]
+        extras: dict = {}
+        if i % intra_period == 0:
+            dec, size = intra_fn(frame)
+            dec = torch.clamp(dec, 0.0, 1.0)
+            dpb = {"ref_frame": dec, "ref_feature": None, "ref_down_ratio": 1.0}
+            typ, ratio = "I", 1.0
+        else:
+            ratio = ratio_for_frame(frame, dpb) if ratio_for_frame is not None else 1.0
+            dec, size, dpb, extras = pframe_fn(frame, dpb, ratio)
+            typ = "P"
+        p_dev = psnr_uint8(frame[:, :h, :w], dec[:, :h, :w])
+        ms_dev = None
+        if compute_msssim:
+            ms_dev = msssim(frame[:, :h, :w], torch.clamp(dec[:, :h, :w], 0, 1))
+        pending.append((typ, ratio, p_dev, size, ms_dev, extras))
+
+    if not pending:
+        return [], []
+    columns = [[p for _, _, p, _, _, _ in pending], [s for _, _, _, s, _, _ in pending]]
+    if compute_msssim:
+        columns.append([m for _, _, _, _, m, _ in pending])
+    ps, szs, *mss = _fetch(columns)
+    psnr_list: list[float] = []
+    size_list: list[float] = []
+    for i, (typ, ratio, _, _, _, extras) in enumerate(pending):
+        p, size = float(ps[i]), float(szs[i])
+        psnr_list.append(p)
+        size_list.append(size)
+        extra = {"msssim": float(mss[0][i])} if mss else {}
+        if info is not None:
+            info.update(video, level, i, typ, p, size, h * w, **extra)
+        if diagnostics is not None:
+            conv = lambda v: None if v is None else float(v)  # noqa: E731
+            diagnostics.update(
+                frame=i, type=typ, down_ratio=ratio, psnr=p,
+                warp_psnr=conv(extras.get("warp_psnr")), bits=size,
+                bpp=size / (h * w), bits_mv=conv(extras.get("bits_mv")),
+                bits_y=conv(extras.get("bits_y")),
             )
     return psnr_list, size_list
 

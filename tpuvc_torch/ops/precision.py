@@ -7,7 +7,7 @@ float32, so one checkpoint serves both modes.
 
 PyTorch runs eagerly, so the policy is read when a layer *runs* (tpuvc reads
 it at trace time). It is a ``contextvars`` variable: worker threads see the
-submitter's policy only through :class:`tpuvc_torch.coder.parallel._CtxPool`.
+submitter's policy only through :class:`tpuvc_torch.coder.parallel.CtxPool`.
 
 Encoder and decoder must compute identically (the decoder re-estimates flow
 from reconstructions), so coding on CUDA also needs :func:`set_deterministic`.

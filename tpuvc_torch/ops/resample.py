@@ -2,7 +2,10 @@
 
 Bilinear resize is two small matrix products (rows, then columns) with the
 same cached interpolation matrices as tpuvc, so the port resamples exactly
-the way the reference does, including its align_corners conventions.
+the way the reference does, including its align_corners conventions. The
+antialiased resize (DMC's fractional down-sampling) is the same two
+products over the weights of ``jax.image.resize(..., "linear")``: a
+triangle kernel widened by the down-sampling factor.
 avg_pool2d with kernel == stride is a reshape-mean; pixel_shuffle is a
 reshape/permute.
 """
@@ -64,6 +67,48 @@ def bilinear_resize(
     mw = _resize_matrix_on(W, out_w, align_corners, x.device, x.dtype)
     y = torch.einsum("oh,...hwc->...owc", mh, x)
     return torch.einsum("pw,...hwc->...hpc", mw, y)
+
+
+@functools.lru_cache(maxsize=256)
+def _antialias_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) weights of ``jax.image.resize(..., "linear")`` (its
+    ``scale_and_translate`` with ``antialias=True``) along one axis, f32.
+
+    Computed in float32 in jax's order: a triangle kernel at the sample
+    positions, widened by 1/scale when down-sampling, each output's weights
+    normalised to sum 1 and zeroed where the sample lies outside the input.
+    """
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = np.sum(w, axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).T.astype(f32)
+
+
+@functools.lru_cache(maxsize=256)
+def _antialias_matrix_on(n_in: int, n_out: int, device, dtype) -> torch.Tensor:
+    """_antialias_matrix as a tensor on ``device``, uploaded once."""
+    return torch.from_numpy(_antialias_matrix(n_in, n_out)).to(device=device, dtype=dtype)
+
+
+def resize_antialias(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``jax.image.resize(x, (..., out_h, out_w, C), "linear")`` of
+    (..., H, W, C): bilinear, antialiased when down-sampling. An axis whose
+    size does not change is left as it is, as jax leaves it."""
+    H, W = x.shape[-3], x.shape[-2]
+    if H != out_h:
+        mh = _antialias_matrix_on(H, out_h, x.device, x.dtype)
+        x = torch.einsum("oh,...hwc->...owc", mh, x)
+    if W != out_w:
+        mw = _antialias_matrix_on(W, out_w, x.device, x.dtype)
+        x = torch.einsum("pw,...hwc->...hpc", mw, x)
+    return x
 
 
 def upsample2x_flow(flow: torch.Tensor) -> torch.Tensor:

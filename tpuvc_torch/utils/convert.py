@@ -5,9 +5,10 @@ parameter path becomes a state-dict key by joining it with dots, except:
 
 - flax module lists ``g_a_layers_3`` (and ELIC's ``h_a_layers`` and
   ``h_s_layers``, CondELIC's ``g_s3_blocks`` and ``prior_fusion_blocks``,
-  and both codecs' ``entropy_parameters``, ``channel_context_models`` and
-  ``context_prediction_models``) are ``nn.ModuleList`` entries
-  ``g_a_layers.3`` here;
+  both codecs' ``entropy_parameters``, ``channel_context_models`` and
+  ``context_prediction_models``, and DMC's ``mv_g_a``, ``mv_g_s``,
+  ``feat_blocks``, ``ctx_refine``, ``recon_head`` and ``adaptors``) are
+  ``nn.ModuleList`` entries ``g_a_layers.3`` here;
 - conv kernels are HWIO in flax and OIHW here (``kernel`` -> ``weight``);
   a ``DeformConv``'s HWIO kernel is named ``weight`` in flax too (the only
   4-D ``weight`` in tpuvc's trees, under ``DeformConv_0`` in v4 and under
@@ -19,8 +20,8 @@ parameter path becomes a state-dict key by joining it with dots, except:
   into the Deconv itself;
 - GDN ``beta``/``gamma``, the entropy bottleneck's ``matrix_i``,
   ``bias_i``, ``factor_i`` and ``quantiles``, and CondELIC's ``Gain``,
-  ``InverseGain``, ``HyperGain`` and ``InverseHyperGain``, and Flex-Rate's
-  ``gain_matrix`` copy verbatim
+  ``InverseGain``, ``HyperGain`` and ``InverseHyperGain``, Flex-Rate's
+  ``gain_matrix`` and DMC's ``gain`` / ``inv_gain`` copy verbatim
   (same reparametrisation, same orientation).
 
 tpuvc/utils/torch_import.py holds the same mapping in the other direction.
@@ -37,6 +38,8 @@ _LISTS = (
     "g_a_layers", "g_s_layers", "h_a_convs", "h_a_layers", "h_s_layers",
     "g_s3_blocks", "prior_fusion_blocks", "entropy_parameters",
     "channel_context_models", "context_prediction_models",
+    # PFrameDMC and its _FourPartCoders
+    "mv_g_a", "mv_g_s", "feat_blocks", "ctx_refine", "recon_head", "adaptors",
 )
 
 
