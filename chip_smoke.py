@@ -12,10 +12,10 @@ window of 1088x1920 B-frames at batch 4 to real rANS streams, FlowGuidedB
 N 64) codes a chain of 1088x1920 P-frames, the encode_v / decode_v and
 encode_p / decode_p CLIs code whole synthetic sequences (ELIC intra + B-
 or P-frames) to a file and back, the RD-eval CLI evaluates a sequence,
-FlowGuidedB codes at every down ratio, and bench_torch.py runs bench.py's
-measurement; each decode must reproduce its encoder's reconstructions bit
-for bit. Each phase runs
-under its own time limit and prints JSON lines:
+FlowGuidedB codes at every down ratio, bench_torch.py runs bench.py's
+measurement, and the train CLI trains every family at batch 8 on 256x256
+crops; each decode must reproduce its encoder's reconstructions bit for
+bit. Each phase runs under its own time limit and prints JSON lines:
 
   device             card name, power limit, software versions
   build              warp and deform kernels (nvcc, in parallel) and rANS
@@ -29,11 +29,23 @@ under its own time limit and prints JSON lines:
                      abs error (<= 2e-5), kernel / plain times, byte and
                      operation bounds; at the largest shape and spread, two
                      launches must give the same bits
+  train_kernel_check both kernels at the training shapes (batch 8, 256x256
+                     crops): the forward against the plain version, the
+                     kernel path's gradients (kernel forward, autograd of
+                     the plain formulation backward) against the plain
+                     version's own, forward and backward times
   reference_check    small LHBDC forward on the card vs the same on the CPU
   reference_check_v4 small full-width FlowGuidedB forward, card vs CPU
   reference_check_v3 the same for DeformB, reference_check_flexrate for
                      Flex-Rate, reference_check_dmc for DMC (two chained
                      P-frames at down ratios 1.0 and 1.5)
+  reference_check_train  one LHBDC(N=128) 'ste' training step at 128x128,
+                     card vs CPU from the same parameters: the loss and each
+                     tensor's gradient error relative to its max
+  train_determinism  two 2-step LHBDC(N=128) runs at batch 8 on 256x256
+                     crops from one seed: bit-identical parameters or not
+                     (reported, not a pass condition: float atomics in the
+                     gather backward)
   main_path          LHBDC: B-frames/s, bpp, PSNR, decode_bit_exact, warp
                      launches, peak device memory
   main_path_v4       FlowGuidedB: the same, with deform launches and the
@@ -71,6 +83,17 @@ under its own time limit and prints JSON lines:
   eval_cli_dmc       the same for DMC: low-delay, the fractional ratio
                      search, float32, with the ratios chosen read back from
                      its per-frame diagnostics CSV
+  train_cli          python -m tpuvc_torch.cli.train in a subprocess per
+                     family at full width, batch 8, 256x256 synthetic crops
+                     (FlowGuidedB 8 steps into stage 2 with one BD-rate
+                     validation, its best.msgpack reported, LHBDC 8, DMC 6 with two P-frames, DeformB,
+                     Flex-Rate and ELIC 4): steps/s after the first, frames
+                     trained per second, the last loss, rate and
+                     distortion, peak memory, launches; latest.msgpack
+                     loaded strictly, the weights and quantiles moved
+  trained_checkpoint_codes  train_cli's LHBDC checkpoint codes a 1088x1920
+                     B-frame through encode_b --weights; decode_b in a
+                     fresh process must reproduce it bit for bit
   adaptive_ratios    FlowGuidedB coded at down ratios 2, 4, 8, 16, each
                      stream decoded bit for bit
   bench_torch        bench_torch.py in a subprocess: its last record must
@@ -97,6 +120,7 @@ import os
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -1517,6 +1541,393 @@ def bench_torch_run(torch, budget_s: int = 240) -> dict:
     return row
 
 
+# Training (cli/train.py) at tpuvc's defaults: batch 8, 256x256 crops.
+# The shapes its kernels run at, held against the plain versions (forward)
+# and timed with the backward that training runs (autograd of the plain
+# formulation): LHBDC's motion compensation and SPyNet (four flows at B=32),
+# Flex-Rate's zero-ring warp, DMC's frame and 48-channel feature warps, the
+# v4 feature warps at /2, /4, /8; the v4 and v3 deform convs at /2, /4, /8.
+TRAIN_B, TRAIN_CROP = 8, 256
+TRAIN_WARP_SHAPES = [
+    ("lhbdc", (32, 256, 256, 3)),
+    ("lhbdc", (8, 256, 256, 3)),
+    ("flexrate", (8, 256, 256, 3)),
+    ("exact", (8, 256, 256, 48)),
+    ("exact", (8, 128, 128, 64)),
+    ("exact", (8, 64, 64, 96)),
+    ("exact", (8, 32, 32, 128)),
+]
+TRAIN_DEFORM_SHAPES = [
+    ("v4 L1", (8, 128, 128, 128), 16, 64),
+    ("v4 L2", (8, 64, 64, 192), 16, 96),
+    ("v4 L3", (8, 32, 32, 256), 16, 128),
+    ("v3 L1", (8, 128, 128, 32), 8, 32),
+    ("v3 L2", (8, 64, 64, 64), 8, 64),
+    ("v3 L3", (8, 32, 32, 96), 8, 96),
+]
+
+
+def _grad_err(torch, got, ref) -> float:
+    """Max |got - ref| over max |ref| (0 where both are 0)."""
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    return err / scale if scale else err
+
+
+def train_kernel_check(torch) -> list[dict]:
+    """Each kernel at the training shapes: the forward against the plain
+    version (the warp bit for bit, the deform conv within 2e-5), the kernel
+    path's gradients (kernel forward, backward by autograd of the plain
+    formulation) against the plain version's own (float atomics in the
+    gather backward: within 1e-5 of the gradient's max), and the times of
+    the kernel forward, of that backward, and of the plain forward plus
+    backward."""
+    from tpuvc_torch.ops import deform as D
+    from tpuvc_torch.ops import warp as W
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+
+    def timed_backward(fn, inputs, g):
+        def run():
+            ins = [t.detach().requires_grad_() for t in inputs]
+            torch.autograd.grad(fn(*ins), ins, g)
+        return time_ms(torch, run, 5, 1)
+
+    for compat, shape in TRAIN_WARP_SHAPES:
+        B, H, Wd, C = shape
+        img = torch.rand(shape, generator=gen, device="cuda")
+        flow = 4.0 * torch.randn((B, H, Wd, 2), generator=gen, device="cuda")
+        g = torch.randn(shape, generator=gen, device="cuda")
+        grads = []
+        for fn in (W.warp, W.warp_plain):
+            i, f = img.clone().requires_grad_(), flow.clone().requires_grad_()
+            out = fn(i, f, compat)
+            grads.append((out.detach(), *torch.autograd.grad(out, (i, f), g)))
+        (ok, gik, gfk), (op, gip, gfp) = grads
+        n_out = B * H * Wd * C
+        bound_bytes = 1e3 * 4 * (2 * n_out + 2 * B * H * Wd) / HBM_BYTES_PER_S
+        bound_ops = 1e3 * WARP_OPS_PER_ELEMENT * n_out / F32_OPS_PER_S
+        row = {"phase": "train_kernel_check", "kernel": "warp", "compat": compat,
+               "shape": list(shape), "fwd_bit_exact": bool(torch.equal(ok, op)),
+               "bound_ms": max(bound_bytes, bound_ops),
+               "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+               "img_grad_rel_err": _grad_err(torch, gik, gip),
+               "flow_grad_rel_err": _grad_err(torch, gfk, gfp),
+               "fwd_ms": time_ms(torch, lambda: W.warp(img, flow, compat), 20),
+               "bwd_ms": timed_backward(lambda i, f: W.warp(i, f, compat), (img, flow), g),
+               "plain_fwd_bwd_ms": timed_backward(
+                   lambda i, f: W.warp_plain(i, f, compat), (img, flow), g)}
+        emit(row)
+        rows.append(row)
+        del img, flow, g, grads, ok, op, gik, gfk, gip, gfp
+        if not (row["fwd_bit_exact"] and row["img_grad_rel_err"] <= 1e-5
+                and row["flow_grad_rel_err"] <= 1e-5):
+            raise AssertionError(f"warp at a training shape disagrees: {row}")
+    for level, (B, H, Wd, C), G, C_out in TRAIN_DEFORM_SHAPES:
+        x, masks, weight, bias = deform_inputs(torch, gen, B, H, Wd, C, C_out, G)
+        off = smooth_offsets(torch, gen, B, H, Wd, G * DEFORM_TAPS * 2)
+        g = torch.randn((B, H, Wd, C_out), generator=gen, device="cuda")
+        inputs = (x, off, masks, weight, bias)
+        grads = []
+        for fn in (D.deform_conv2d, D.deform_plain):
+            ins = [t.clone().requires_grad_() for t in inputs]
+            out = fn(*ins, G, 3)
+            grads.append((out.detach(), torch.autograd.grad(out, ins, g)))
+        (ok, gk), (op, gp) = grads
+        n_bytes = 4 * sum(t.numel() for t in (*inputs, g))  # g: the output's size
+        bound_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+        bound_ops = 1e3 * deform_ops(B, H, Wd, G, C // G, C_out // G) / F32_OPS_PER_S
+        row = {"phase": "train_kernel_check", "kernel": "deform", "level": level,
+               "x_shape": [B, H, Wd, C], "groups": G, "out_channels": C_out,
+               "bound_ms": max(bound_bytes, bound_ops),
+               "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+               "spread": "smooth_5px", "fwd_max_abs_err": float((ok - op).abs().max()),
+               "grad_rel_err": {n: _grad_err(torch, a, b) for n, a, b in zip(
+                   ("x", "offsets", "masks", "weight", "bias"), gk, gp)},
+               "fwd_ms": time_ms(torch, lambda: D.deform_conv2d(*inputs, G, 3), 5),
+               "bwd_ms": timed_backward(lambda *t: D.deform_conv2d(*t, G, 3), inputs, g),
+               "plain_fwd_bwd_ms": timed_backward(lambda *t: D.deform_plain(*t, G, 3),
+                                                  inputs, g)}
+        emit(row)
+        rows.append(row)
+        del x, masks, weight, bias, off, g, inputs, grads, ok, op, gk, gp
+        torch.cuda.empty_cache()
+        if not (row["fwd_max_abs_err"] <= 2e-5 and max(row["grad_rel_err"].values()) <= 1e-5):
+            raise AssertionError(f"deform at a training shape disagrees: {row}")
+    return rows
+
+
+def reference_check_train(torch) -> dict:
+    """One LHBDC(N=128) 'ste' training step at 1x128x128 on the card (warp
+    kernel forward, backward through autograd, cuDNN float32 with TF32 off)
+    against the same step on the CPU (plain versions), from the same
+    parameters: the loss within 1e-4 relative; each parameter's gradient
+    error relative to its max |g|, the median within 1e-4 and the worst
+    within 5e-2 (float32 rounding on either device can flip a sample
+    point's bilinear cell or a latent's rounding bin, which moves the
+    gradients upstream of it by ~1e-3 to ~1e-2 of their max; the median
+    measures everything else); and one full step (optimizer included) that
+    moves the weights and every quantile."""
+    from tpuvc_torch.models.lhbdc import LHBDC
+    from tpuvc_torch.train.trainer import make_lhbdc_step, make_optimizer
+
+    model = LHBDC(N=128, generator=torch.Generator().manual_seed(7))
+    g = torch.Generator().manual_seed(8)
+    base = torch.rand((1, 1, 128, 128, 3), generator=g)
+    drift = 0.05 * torch.randn((1, 1, 128, 128, 3), generator=g)
+    batch = torch.clamp(torch.cat([base - drift, base, base + drift], dim=1), 0, 1)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        model.to(dev)
+        params = dict(model.named_parameters())
+        step = make_lhbdc_step(model, make_optimizer(), alpha=1626.0, mode="ste")
+        loss, _ = step.loss_fn(batch.to(dev), 0)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        results[dev] = (float(loss.detach()), {
+            n: gr.cpu() if gr is not None else torch.zeros_like(p.detach().cpu())
+            for (n, p), gr in zip(params.items(), grads)})
+    (cpu_loss, cpu_g), (card_loss, card_g) = results["cpu"], results["cuda"]
+    errs = {n: _grad_err(torch, card_g[n], cpu_g[n]) for n in cpu_g}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    tx = make_optimizer()
+    params = dict(model.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+    reset_launches()
+    _, _, metrics = make_lhbdc_step(model, tx, alpha=1626.0, mode="ste")(
+        params, tx.init(params), batch.cuda(), 0)
+    launches = read_launches()
+    moved = sum(not torch.equal(before[n], p.detach()) for n, p in params.items())
+    quantiles = [n for n in params if n.endswith(".quantiles")]
+    row = {"phase": "reference_check_train", "model": "LHBDC(N=128) seeded", "mode": "ste",
+           "shape": [1, 3, 128, 128, 3], "loss_card": card_loss, "loss_cpu": cpu_loss,
+           "loss_rel_err": abs(card_loss - cpu_loss) / abs(cpu_loss),
+           "grad_rel_err_max": worst[0][1], "grad_rel_err_worst": dict(worst),
+           "grad_rel_err_median": sorted(errs.values())[len(errs) // 2],
+           "tensors": len(errs), "step_launches": launches,
+           "tensors_moved": moved, "step_loss": float(metrics["loss"])}
+    row["quantiles_moved"] = all(not torch.equal(before[n], params[n].detach())
+                                 for n in quantiles)
+    emit(row)
+    model.cpu()
+    if not (row["loss_rel_err"] <= 1e-4 and row["grad_rel_err_median"] <= 1e-4
+            and row["grad_rel_err_max"] <= 5e-2 and moved > 0 and row["quantiles_moved"]
+            and launches["warp"] > 0):
+        raise AssertionError(f"training step card vs CPU disagrees: {row}")
+    return row
+
+
+def train_determinism(torch) -> dict:
+    """Two 2-step LHBDC(N=128) training runs from one seed and one batch
+    stream (batch 8, 256x256 synthetic crops, 'noise' from the same seeds):
+    whether the parameters come out bit-identical, and how far apart. Not
+    a pass condition: the warp's and the deform conv's backward add with
+    float atomics (torch's deterministic mode is not set)."""
+    from tpuvc_torch.data.vimeo import SyntheticSeptuplets, make_batch_iterator
+    from tpuvc_torch.models.lhbdc import LHBDC
+    from tpuvc_torch.train.trainer import make_lhbdc_step, make_optimizer
+
+    runs = []
+    for _ in range(2):
+        model = LHBDC(N=128, generator=torch.Generator().manual_seed(0)).cuda()
+        batches = make_batch_iterator(SyntheticSeptuplets(n=256, size=TRAIN_CROP + 32),
+                                      TRAIN_B, TRAIN_CROP, seed=0, raw_uint8=True)
+        tx = make_optimizer()
+        step = make_lhbdc_step(model, tx, alpha=1626.0)
+        params = dict(model.named_parameters())
+        opt = tx.init(params)
+        for it in range(2):
+            batch = torch.from_numpy(next(batches)).cuda().float() / 255.0
+            params, opt, _ = step(params, opt, batch, (1, it))
+        runs.append({n: p.detach().clone() for n, p in params.items()})
+    diff = {n: float((runs[0][n] - runs[1][n]).abs().max()) for n in runs[0]}
+    row = {"phase": "train_determinism", "model": "LHBDC(N=128) seeded", "steps": 2,
+           "batch": TRAIN_B, "crop": TRAIN_CROP, "tensors": len(diff),
+           "tensors_bit_identical": sum(d == 0.0 for d in diff.values()),
+           "max_abs_diff": max(diff.values())}
+    emit(row)
+    return row
+
+
+# The train CLI per family at full width on synthetic data (no dataset is
+# in the tree): batch 8, 256x256 crops, tpuvc's defaults otherwise.
+TRAIN_RUNS = [
+    ("flowguided_b", ["stage2_start=2", "total_steps=8", "val_every=8"]),
+    ("lhbdc", ["total_steps=8"]),
+    ("dmc", ["n_pframes=2", "total_steps=6"]),
+    ("deform_b", ["total_steps=4"]),
+    ("flexrate", ["total_steps=4"]),
+    ("elic", ["total_steps=4"]),
+]
+TRAIN_KERNELS = {"lhbdc": ["warp"], "flowguided_b": ["warp", "deform"],
+                 "deform_b": ["deform"], "flexrate": ["warp"], "dmc": ["warp"], "elic": []}
+
+# Run in a fresh interpreter by train_cli, from the repository root:
+# ``python -m tpuvc_torch.cli.train`` on the other arguments (runpy runs it
+# as __main__, as -m does), with a LaunchLog in front of each kernel
+# library; prints the launched shapes as the last line.
+TRAIN_IN_A_NEW_PROCESS = """
+import json, runpy, sys
+import chip_smoke
+logged = chip_smoke.log_launches()
+sys.argv = ["tpuvc_torch.cli.train", *sys.argv[1:]]
+runpy.run_module("tpuvc_torch.cli.train", run_name="__main__", alter_sys=True)
+print(json.dumps({k: sorted(v) for k, v in logged.items()}))
+"""
+
+
+def train_cli(torch, logged: dict, tmp: str) -> list[dict]:
+    """``python -m tpuvc_torch.cli.train`` in a subprocess for each of
+    TRAIN_RUNS, on the card, at full width: its summary line (it/s after the
+    first step, frames trained per second, the last loss, rate and
+    distortion, peak memory, kernel launches), then ``latest.msgpack``
+    loaded strictly through ``params_from_jax`` into the family's model,
+    and the main parameters and the quantiles both moved from the seeded
+    initial weights. The kernel shapes the runs launched join ``logged``
+    for path_shapes_check."""
+    import math
+
+    import numpy as np
+
+    from tpuvc_torch.cli import train
+    from tpuvc_torch.config import TrainConfig, apply_overrides
+    from tpuvc_torch.train.trainer import make_optimizer
+    from tpuvc_torch.utils.checkpoint import load_checkpoint
+    from tpuvc_torch.utils.convert import params_from_jax, params_to_jax
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    rows = []
+    for family, extra in TRAIN_RUNS:
+        ck_dir = os.path.join(tmp, f"train_{family}")
+        args = ["--device", "cuda", f"model.family={family}", f"batch_size={TRAIN_B}",
+                f"crop={TRAIN_CROP}", f"checkpoint_dir={ck_dir}", *extra]
+        release_cache(torch)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", TRAIN_IN_A_NEW_PROCESS, *args], cwd=root,
+                              capture_output=True, text=True, timeout=300)
+        wall_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"train {family} failed:\n{proc.stderr[-4000:]}")
+        summary = json.loads(next(line.split(" summary ", 1)[1]
+                                  for line in reversed(proc.stderr.splitlines())
+                                  if " summary " in line))
+        shapes = json.loads(proc.stdout.strip().splitlines()[-1])
+        for k in ("warp", "deform"):
+            logged[k].update(tuple(v) for v in shapes[k])
+
+        cfg = apply_overrides(TrainConfig(), [f"model.family={family}"])
+        model, _, _ = train.build_family(cfg, make_optimizer(), np.random.default_rng(0))
+        init = params_to_jax(model)
+        ck = load_checkpoint(os.path.join(ck_dir, "latest.msgpack"))
+        model.load_state_dict(params_from_jax(ck["params"]), strict=True)
+        moved = {"main": 0, "quantiles": 0}
+        for path, v in _leaves(ck["params"]):
+            if not np.array_equal(v, _get(init, path)):
+                moved["quantiles" if path[-1] == "quantiles" else "main"] += 1
+        row = {"phase": "train_cli", "path": f"train_{family}", "family": family,
+               "args": args, "wall_s": wall_s, **summary, "checkpoint_step": int(ck["step"]),
+               "tensors_moved": moved, "best_msgpack": os.path.exists(
+                   os.path.join(ck_dir, "best.msgpack"))}
+        emit(row)
+        rows.append(row)
+        m = summary["metrics"]
+        if not all(math.isfinite(m[k]) for k in ("loss", "rate", "mse", "aux")):
+            raise AssertionError(f"train {family}: a metric is not finite: {m}")
+        if not (moved["main"] > 0 and moved["quantiles"] > 0):
+            raise AssertionError(f"train {family}: weights did not move: {moved}")
+        for k in TRAIN_KERNELS[family]:
+            if summary["launches"][k] == 0:
+                raise AssertionError(f"train {family} launched no {k} kernel")
+        # best.msgpack is written when the validation's BD-rate against the
+        # published anchor improves; seeded weights code at ~6 dB, far below
+        # the anchor's 36-39 dB, so that BD-rate extrapolates to +-100% or
+        # inf/NaN by float noise, and the file is reported, not required.
+        if family == "flowguided_b" and summary["validations"] < 1:
+            raise AssertionError("train flowguided_b ran no BD-rate validation")
+    return rows
+
+
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+# Run in a fresh interpreter by trained_checkpoint_codes: decode_b's main on
+# the other arguments, printing the sha256 of the float32 reconstruction.
+DECODE_B_IN_A_NEW_PROCESS = """
+import hashlib, json, sys
+from tpuvc_torch.cli import decode_b
+x_hat = decode_b.main(sys.argv[1:])
+print(json.dumps({"sha256": hashlib.sha256(x_hat.cpu().numpy().tobytes()).hexdigest()}))
+"""
+
+
+def trained_checkpoint_codes(torch, tmp: str) -> dict:
+    """The LHBDC checkpoint train_cli wrote, saved as
+    ``compression_1626.msgpack``, codes a 1088x1920 B-frame through
+    ``encode_b --weights`` (in this process, launches counted), and
+    ``decode_b`` decodes the stream in a fresh process: its reconstruction
+    must equal the encoder's bit for bit."""
+    import hashlib
+    import io
+    import shutil
+
+    from tpuvc_torch.cli import encode_b
+    from tpuvc_torch.data.frames import save_png
+    from tpuvc_torch.data.uvg import SyntheticSequence
+
+    h, w = FRAME
+    wdir = os.path.join(tmp, "trained_weights")
+    os.makedirs(wdir, exist_ok=True)
+    shutil.copy(os.path.join(tmp, "train_lhbdc", "latest.msgpack"),
+                os.path.join(wdir, "compression_1626.msgpack"))
+    seq = SyntheticSequence(n_frames=3, h=h, w=w, seed=3)
+    names = [os.path.join(tmp, f"tc_{k}.png") for k in ("ref_1", "current", "ref_2")]
+    for i, name in enumerate(names):
+        save_png(name, seq.u8(i)[0, :h, :w])
+    bin_path = os.path.join(tmp, "trained.bin")
+    common = ["--family", "lhbdc", "--ref_1", names[0], "--ref_2", names[2],
+              "--weights", wdir, "--device", "cuda", "--bin", bin_path]
+    release_cache(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        bits, x_hat = encode_b.main(common + ["--current", names[1], "--l", "1626"])
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    launches = read_launches()
+    enc_sha = hashlib.sha256(x_hat.cpu().numpy().tobytes()).hexdigest()
+    finite = bool(torch.isfinite(x_hat).all())
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", DECODE_B_IN_A_NEW_PROCESS, *common,
+         "--out", os.path.join(tmp, "trained_dec.png")],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"decode_b of the trained checkpoint failed:\n{proc.stderr[-4000:]}")
+    dec_sha = json.loads(proc.stdout.strip().splitlines()[-1])["sha256"]
+    from tpuvc_torch.eval.metrics import psnr_uint8_np
+
+    psnr = psnr_uint8_np(seq.u8(1)[0, :h, :w], x_hat[0, :h, :w].clamp(0, 1).cpu().numpy())
+    row = {"phase": "trained_checkpoint_codes", "weights": "train_cli's LHBDC latest.msgpack",
+           "frame": [h, w], "bytes": bits.num_bytes, "bpp": 8 * bits.num_bytes / (h * w),
+           "psnr_db": psnr, "encode_s": enc_s, "launches": launches,
+           "decode_bit_exact": enc_sha == dec_sha, "finite": finite}
+    emit(row)
+    if not (row["decode_bit_exact"] and finite and launches["warp"] > 0):
+        raise AssertionError(f"the trained checkpoint does not code bit-exact: {row}")
+    return row
+
+
 def build_kernels() -> dict:
     """Build the CUDA kernels (one nvcc each, all started together) and the
     rANS library; returns the seconds each took."""
@@ -1562,6 +1973,8 @@ def main() -> int:
         warp_rows = warp_check(torch)
     with phase("deform_check", 360):
         deform_rows = deform_check(torch)
+    with phase("train_kernel_check", 240):
+        train_krows = train_kernel_check(torch)
     with phase("reference_check", 120):
         reference_check(torch)
     with phase("reference_check_v4", 120):
@@ -1570,6 +1983,10 @@ def main() -> int:
         reference_check_v3(torch)
     with phase("reference_check_flexrate", 120):
         reference_check_flexrate(torch)
+    with phase("reference_check_train", 120):
+        reference_check_train(torch)
+    with phase("train_determinism", 120):
+        train_determinism(torch)
     with phase("main_path", 300):
         lhbdc = main_path(torch)
     with phase("main_path_v4", 420):
@@ -1594,6 +2011,12 @@ def main() -> int:
         seq_dmc = sequence_cli_dmc(torch)
     with phase("eval_cli_dmc", 240):
         eval_rows += eval_cli(torch, EVAL_RUNS_DMC, warm=False)
+    train_tmp = tempfile.TemporaryDirectory()
+    with phase("train_cli", 600):
+        train_rows = train_cli(torch, logged, train_tmp.name)
+    with phase("trained_checkpoint_codes", 180):
+        trained = trained_checkpoint_codes(torch, train_tmp.name)
+    train_tmp.cleanup()
     with phase("adaptive_ratios", 180):
         adaptive = adaptive_ratios(torch)
     with phase("bench_torch", 480):
@@ -1617,6 +2040,9 @@ def main() -> int:
         # and again before its timed eval passes
         paths["bench_torch"] = bench["record"]["launches"][kernel]
         paths["bench_torch_eval"] = bench["record"]["eval_launches"][kernel]
+        # the train CLI's subprocesses count their own launches (their summary)
+        paths.update({r["path"]: r["launches"][kernel] for r in train_rows})
+        paths["trained_checkpoint_encode_b"] = trained["launches"][kernel]
         return paths
 
     warp_head = warp_rows[0]  # the largest shape: SPyNet's finest level
@@ -1654,6 +2080,11 @@ def main() -> int:
         if kernel == "warp":
             kernels[-1]["dmc_head"] = {k: dmc_head[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        # the largest training shape: forward, and the backward training runs
+        train_head = max((r for r in train_krows if r["kernel"] == kernel),
+                         key=lambda r: r["fwd_ms"])
+        kernels[-1]["train_head"] = {k: train_head.get(k) for k in (
+            "shape", "x_shape", "fwd_ms", "bwd_ms", "plain_fwd_bwd_ms", "bound_ms", "bound_by")}
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

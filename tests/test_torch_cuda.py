@@ -656,3 +656,149 @@ def test_dmc_round_trip_on_card(cuda):
     for k in ("ref_frame", "ref_feature", "ref_mv_feature", "ref_y", "ref_mv_y"):
         assert torch.equal(dec_dpb[k], enc_dpb[k]) and torch.equal(folded[k], enc_dpb[k])
     assert warp_kernel.launches > 0
+
+
+# --- training (cli/train.py's steps) on the card --------------------------
+
+def _grad_rel_err(got, ref):
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    return err / scale if scale else err
+
+
+def _window(T, B=2, hw=64, seed=20):
+    rng = np.random.default_rng(seed)
+    base = rng.random((B, 1, hw, hw, 3), dtype=np.float32)
+    drift = 0.05 * rng.standard_normal((B, 1, hw, hw, 3)).astype(np.float32)
+    t = np.arange(T, dtype=np.float32).reshape(1, T, 1, 1, 1) - T // 2
+    return torch.from_numpy(np.clip(base + t * drift, 0, 1).astype(np.float32))
+
+
+def _grads_agree(g_card, g_cpu):
+    """Card against CPU gradients, per tensor relative to its max: the
+    median within 1e-4, the worst within 5e-2 (float32 rounding on either
+    device can flip a sample point's bilinear cell or a latent's rounding
+    bin; the LHBDC smoke step measured 1.14e-2 at worst, 4.5e-6 median)."""
+    errs = sorted(_grad_rel_err(a, b) for a, b in zip(g_card, g_cpu))
+    assert errs[len(errs) // 2] <= 1e-4 and errs[-1] <= 5e-2, errs[-5:]
+
+
+def test_lhbdc_training_step_on_card(cuda):
+    """LHBDC(N=32) 'ste' step: the loss and gradients on the card against the
+    CPU (loss 1e-4 relative, gradients as _grads_agree), then a full step
+    through the warp kernel that moves every quantile."""
+    from tpuvc_torch.models.lhbdc import LHBDC
+    from tpuvc_torch.ops.warp import warp_kernel
+    from tpuvc_torch.train.trainer import make_lhbdc_step, make_optimizer
+
+    model = LHBDC(N=32, generator=torch.Generator().manual_seed(21))
+    batch = _window(3)
+    got = {}
+    for dev in ("cpu", cuda):
+        model.to(dev)
+        params = dict(model.named_parameters())
+        loss, _ = make_lhbdc_step(model, make_optimizer(), 1626.0, mode="ste").loss_fn(
+            batch.to(dev), 0)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        got[str(dev)] = (float(loss.detach()), [
+            torch.zeros_like(p.detach().cpu()) if g is None else g.cpu()
+            for p, g in zip(params.values(), grads)])
+    (l_cpu, g_cpu), (l_card, g_card) = got["cpu"], got["cuda"]
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    _grads_agree(g_card, g_cpu)
+    tx = make_optimizer()
+    params = dict(model.named_parameters())
+    q0 = {n: p.detach().clone() for n, p in params.items() if n.endswith("quantiles")}
+    warp_kernel.launches = 0
+    _, _, metrics = make_lhbdc_step(model, tx, 1626.0)(params, tx.init(params),
+                                                       batch.to(cuda), (1, 0))
+    assert warp_kernel.launches > 0 and torch.isfinite(metrics["loss"])
+    assert all(not torch.equal(q0[n], params[n].detach()) for n in q0)
+
+
+def test_v4_training_step_on_card(cuda):
+    """A narrow FlowGuidedB's recursive step, both stages, in 'ste' on the
+    card (deform and warp kernels forward, autograd backward) against the
+    CPU: loss 1e-4 relative, gradients as _grads_agree."""
+    from tpuvc_torch.cli.train import code_fn_for
+    from tpuvc_torch.models.flowguided_b import FlowGuidedB
+    from tpuvc_torch.ops.deform import deform_kernel
+    from tpuvc_torch.ops.warp import warp_kernel
+    from tpuvc_torch.train.trainer import make_optimizer, make_recursive_step
+
+    model = FlowGuidedB(feature_channels=(16, 32, 48), N=32, M=32, levels=3,
+                        groups=(4, 4, 8, 16), generator=torch.Generator().manual_seed(22))
+    with torch.no_grad():  # fractional offsets and flows, as a trained model's
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator().manual_seed(23)))
+    batch = _window(5, B=1)
+    got = {}
+    for dev in ("cpu", cuda):
+        model.to(dev)
+        params = dict(model.named_parameters())
+        step = make_recursive_step(code_fn_for("flowguided_b", model), model.aux_loss,
+                                   make_optimizer(), beta=0.0207)
+        warp_kernel.launches = deform_kernel.launches = 0
+        loss, _ = step.loss_fn(batch.to(dev), 0, True, 1, 2)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        got[str(dev)] = (float(loss.detach()), [
+            torch.zeros_like(p.detach().cpu()) if g is None else g.cpu()
+            for p, g in zip(params.values(), grads)])
+    assert warp_kernel.launches > 0 and deform_kernel.launches > 0
+    (l_cpu, g_cpu), (l_card, g_card) = got["cpu"], got["cuda"]
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    _grads_agree(g_card, g_cpu)
+
+
+@pytest.mark.parametrize("compat, shape", [
+    ("lhbdc", (32, 256, 256, 3)), ("lhbdc", (8, 256, 256, 3)), ("flexrate", (8, 256, 256, 3)),
+    ("exact", (8, 256, 256, 48)), ("exact", (8, 128, 128, 64)), ("exact", (8, 64, 64, 96)),
+    ("exact", (8, 32, 32, 128)),
+])
+def test_warp_backward_at_the_training_shapes(cuda, compat, shape):
+    """The kernel path (kernel forward, autograd of the plain formulation
+    backward) against warp_plain's own autograd at batch 8, 256x256 crops:
+    the forward bit for bit, the gradients within 1e-5 of their max (the
+    gather backward adds with float atomics)."""
+    from tpuvc_torch.ops.warp import warp, warp_plain
+
+    img, flow = (t.to(cuda) for t in _inputs(shape, scale=4.0, seed=24))
+    g = torch.rand_like(img)
+    res = []
+    for fn in (warp, warp_plain):
+        i, f = img.clone().requires_grad_(), flow.clone().requires_grad_()
+        out = fn(i, f, compat)
+        res.append((out.detach(), *torch.autograd.grad(out, (i, f), g)))
+    (ok, gik, gfk), (op, gip, gfp) = res
+    assert torch.equal(ok, op)
+    assert _grad_rel_err(gik, gip) <= 1e-5 and _grad_rel_err(gfk, gfp) <= 1e-5
+
+
+@pytest.mark.parametrize("x_shape, G, C_out", [
+    ((8, 128, 128, 128), 16, 64), ((8, 64, 64, 192), 16, 96), ((8, 32, 32, 256), 16, 128),
+    ((8, 128, 128, 32), 8, 32), ((8, 64, 64, 64), 8, 64), ((8, 32, 32, 96), 8, 96),
+])
+def test_deform_backward_at_the_training_shapes(cuda, x_shape, G, C_out):
+    """deform_conv2d (kernel forward, autograd of deform_plain backward)
+    against deform_plain's own autograd at the v4 and v3 training shapes:
+    the forward within 2e-5, every gradient within 1e-5 of its max."""
+    from tpuvc_torch.ops.deform import deform_conv2d, deform_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    B, H, W, C = x_shape
+    T = 9
+    inputs = (torch.randn(x_shape, generator=gen, device=cuda),
+              2.0 * torch.randn((B, H, W, G * T * 2), generator=gen, device=cuda),
+              torch.rand((B, H, W, G * T), generator=gen, device=cuda),
+              torch.randn((C_out, C // G, 3, 3), generator=gen, device=cuda) / (T * C // G) ** 0.5,
+              0.1 * torch.randn((C_out,), generator=gen, device=cuda))
+    g = torch.randn((B, H, W, C_out), generator=gen, device=cuda)
+    res = []
+    for fn in (deform_conv2d, deform_plain):
+        ins = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*ins, G, 3)
+        res.append((out.detach(), torch.autograd.grad(out, ins, g)))
+    (ok, gk), (op, gp) = res
+    assert float((ok - op).abs().max()) <= 2e-5
+    assert max(_grad_rel_err(a, b) for a, b in zip(gk, gp)) <= 1e-5

@@ -1,0 +1,33 @@
+"""DeformB's (v3) training loss and gradients,
+tpuvc_torch against tpuvc, through each package's ``make_recursive_step``
+in 'ste' (stage 1; both stages are held on Flex-Rate in
+tests/test_torch_train_steps.py), both packages in float64: the loss within
+1e-5 relative, every gradient tensor within 2e-3 of its max |g|. A file of
+its own so that the test runner's workers take it beside the other step
+tests.
+"""
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from torch_params_common import filled_params
+from torch_train_common import batch_np, recursive_parity
+from tpuvc_torch.utils.convert import params_from_jax
+
+torch.set_num_threads(1)
+
+
+def test_deform_b_recursive_gradients_match_tpuvc():
+    from tpuvc.models.deform_b import DeformB as J
+    from tpuvc_torch.models.deform_b import DeformB as T
+
+    kw = dict(feature_channels=(8, 16, 24), N=32, M=32, levels=3, groups=(4, 4, 8, 16))
+    jm = J(**kw)
+    x = jnp.zeros((1, 64, 64, 3))
+    v = filled_params(lambda: jm.init(jax.random.key(0), x, x, x, 1, "dequantize"),
+                      seed=4)["params"]
+    tm = T(**kw)
+    tm.load_state_dict(params_from_jax(v))
+    recursive_parity("deform_b", jm, v, tm, batch_np((1, 5, 64, 64, 3), seed=2),
+               stage2=False, level=2, dr=1)

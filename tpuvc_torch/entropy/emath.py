@@ -2,7 +2,8 @@
 
 ``lower_bound`` is max(x, bound) whose gradient passes where the input is at
 or above the bound, or where the gradient pushes it up (compressai's
-LowerBound). Bits are sum(-log2 p).
+LowerBound). ``clip`` is ``jnp.clip`` with JAX's gradient. Bits are
+sum(-log2 p).
 """
 
 from __future__ import annotations
@@ -26,6 +27,16 @@ class _LowerBound(torch.autograd.Function):
 
 def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
     return _LowerBound.apply(x, bound)
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``: ``torch.clamp``'s values, and JAX's gradient,
+    which is half the incoming one where x sits exactly on a bound
+    (``torch.clamp`` passes all of it). ``torch.maximum`` and
+    ``torch.minimum`` with tensor bounds split a tie as JAX does."""
+    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
 #: Floor applied to likelihoods before taking logs (compressai default).

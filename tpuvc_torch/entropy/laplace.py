@@ -17,8 +17,15 @@ from tpuvc_torch.entropy.gaussian import GaussianConditional, GaussianTables
 
 
 def _lap_cdf(t: torch.Tensor) -> torch.Tensor:
-    """Standard Laplace CDF at t = x / scale."""
-    return torch.where(t < 0, 0.5 * torch.exp(t), 1.0 - 0.5 * torch.exp(-t))
+    """Standard Laplace CDF at t = x / scale.
+
+    Each branch's exponent is clamped to its own side of 0: the values are
+    tpuvc's, and so is the gradient wherever tpuvc's is finite. tpuvc's
+    ``where(t < 0, 0.5 exp(t), 1 - 0.5 exp(-t))`` overflows the branch it
+    does not select once |t| > 88, and that inf times the zero gradient
+    ``where`` hands the branch is NaN (a latent ~10 scales from its mean)."""
+    return torch.where(t < 0, 0.5 * torch.exp(torch.clamp(t, max=0.0)),
+                       1.0 - 0.5 * torch.exp(-torch.clamp(t, min=0.0)))
 
 
 class LaplaceConditional(GaussianConditional):

@@ -114,5 +114,5 @@ def msssim(a: torch.Tensor, b: torch.Tensor, data_range: float = 1.0) -> torch.T
     for w, v in zip(_MSSSIM_WEIGHTS, vals):
         # Clamp away from 0: the contrast-structure term can go negative on
         # uncorrelated inputs, and v**w has an infinite gradient at 0.
-        out = out * torch.clamp(v, min=1e-6) ** float(w)
+        out = out * torch.maximum(v, torch.full_like(v, 1e-6)) ** float(w)
     return out

@@ -31,7 +31,7 @@ from torch import nn
 from tpuvc_torch.entropy.bottleneck import FactorizedBottleneck, FactorizedTables
 from tpuvc_torch.entropy.gaussian import GaussianConditional
 from tpuvc_torch.entropy.quant import quantize, ste_round
-from tpuvc_torch.models.layers import Conv, Deconv, ResidualBottleneckBlock
+from tpuvc_torch.models.layers import Conv, Deconv, ResidualBottleneckBlock, leaky_relu
 from tpuvc_torch.models.ms_feature import _ConvRBB, _named
 from tpuvc_torch.ops.checkerboard import (
     CheckerboardConv,
@@ -85,8 +85,8 @@ class _EntropyParams(nn.Module):
         self.Conv_2 = Conv(M * 8 // 3, out_channels, kernel=1)
 
     def forward(self, x):
-        x = F.leaky_relu(self.Conv_0(x), 0.01)
-        x = F.leaky_relu(self.Conv_1(x), 0.01)
+        x = leaky_relu(self.Conv_0(x))
+        x = leaky_relu(self.Conv_1(x))
         return self.Conv_2(x)
 
 

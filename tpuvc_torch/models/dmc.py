@@ -34,15 +34,15 @@ from torch import nn
 from tpuvc_torch import resolve_device
 from tpuvc_torch.coder.parallel import CtxPool
 from tpuvc_torch.entropy.bottleneck import FactorizedBottleneck, FactorizedTables
-from tpuvc_torch.entropy.emath import likelihood_to_bits
+from tpuvc_torch.entropy.emath import clip, likelihood_to_bits
 from tpuvc_torch.entropy.laplace import LaplaceConditional
 from tpuvc_torch.entropy.quant import quantize
 from tpuvc_torch.models.layers import (
     Conv,
     ResidualBottleneckBlock,
     SubpelConv,
-    _leaky_relu,
     init_weights,
+    leaky_relu,
 )
 from tpuvc_torch.models.spynet import SPyNet
 from tpuvc_torch.ops.pad import pad_to_multiple, unpad
@@ -90,7 +90,7 @@ def part_scatter(full: torch.Tensor, vals: torch.Tensor, k: int) -> torch.Tensor
 
 def _q_step(raw: torch.Tensor) -> torch.Tensor:
     """Positive content-adaptive quantization step, ~1 at init."""
-    return torch.exp(torch.clamp(raw, -3.0, 3.0))
+    return torch.exp(clip(raw, -3.0, 3.0))
 
 
 class _FourPartCoder(nn.Module):
@@ -273,13 +273,13 @@ class PFrameDMC(nn.Module):
         y = self._mv_feat(mv_scaled, ref_mv_feature)
         n = len(self.mv_g_a)
         for i, layer in enumerate(self.mv_g_a):
-            y = layer(y) if i == n - 1 else _leaky_relu(layer(y))
+            y = layer(y) if i == n - 1 else leaky_relu(layer(y))
         return y
 
     def _mv_decode(self, x):
         """mv synthesis after the inverse gain -> (mv, mv_feature)."""
         for layer in self.mv_g_s:
-            x = _leaky_relu(layer(x))
+            x = leaky_relu(layer(x))
         return self.mv_out(x), x
 
     def code_mv(self, mv_scaled, ref_mv_feature, ref_mv_y, mode, generator=None, q=0.0):
@@ -367,7 +367,7 @@ class PFrameDMC(nn.Module):
             "bits_y": bits_y,
             "rate": bits / (B * H * W),
             "dpb": {
-                "ref_frame": torch.clamp(x_hat, 0.0, 1.0),
+                "ref_frame": clip(x_hat, 0.0, 1.0),
                 "ref_feature": feature,
                 "ref_mv_feature": mv_feature,
                 "ref_y": y_hat,
@@ -551,7 +551,7 @@ class PFrameDMCCoder:
             "mv_parts": mv_parts,
             "z_sym": z_sym,
             "y_parts": y_parts,
-            "x_hat": torch.clamp(x_hat, 0.0, 1.0),
+            "x_hat": clip(x_hat, 0.0, 1.0),
             "feature": feature,
             "mv_feature": mv_feature,
             "mv_y_hat": mv_y_hat,
@@ -695,7 +695,7 @@ class PFrameDMCCoder:
                 y_hat = f_y.result()
                 x_hat, feature = m.frame_synthesis(y_hat, context, q)
                 cur = {
-                    "ref_frame": torch.clamp(x_hat, 0.0, 1.0),
+                    "ref_frame": clip(x_hat, 0.0, 1.0),
                     "ref_feature": feature,
                     "ref_mv_feature": mv_feature,
                     "ref_y": y_hat,

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tpuvc_torch.entropy.bottleneck import FactorizedBottleneck, FactorizedTables
@@ -26,11 +25,8 @@ from tpuvc_torch.models.layers import (
     ResidualBlockUpsample,
     ResidualBlockWithStride,
     SubpelConv,
+    leaky_relu,
 )
-
-
-def _lrelu(x):
-    return F.leaky_relu(x, 0.01)
 
 
 class MeanScaleHyperprior(nn.Module):
@@ -88,14 +84,14 @@ class MeanScaleHyperprior(nn.Module):
         for i, c in enumerate(self.h_a_convs):
             x = c(x)
             if i < n - 1:
-                x = _lrelu(x)
+                x = leaky_relu(x)
         return x
 
     def h_s(self, z_hat):
-        x = _lrelu(self.h_s_conv0(z_hat))
-        x = _lrelu(self.h_s_up0(x))
-        x = _lrelu(self.h_s_conv1(x))
-        x = _lrelu(self.h_s_up1(x))
+        x = leaky_relu(self.h_s_conv0(z_hat))
+        x = leaky_relu(self.h_s_up0(x))
+        x = leaky_relu(self.h_s_conv1(x))
+        x = leaky_relu(self.h_s_up1(x))
         return self.h_s_out(x)
 
     def g_s(self, y_hat):

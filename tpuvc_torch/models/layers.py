@@ -44,12 +44,21 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator | None = None):
 
 def conv2d_nhwc(x, weight, bias, stride: int = 1, padding: int = 0):
     """NHWC conv with OIHW weights under the compute-dtype policy; output
-    and bias add in float32."""
+    and bias add in float32.
+
+    While autograd records a CPU conv, the input goes in as a contiguous
+    NCHW copy: oneDNN's backward of a strided conv on the channels-last view
+    corrupts the heap (1x1 stride 2 over 3-8 channels aborts the process
+    under torch 2.13's CPU build). Inference and CUDA take the view."""
     dt = precision.compute_dtype()
     if dt is not None:
         x = x.to(dt)
         weight = weight.to(dt)
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight, stride=stride, padding=padding)
+    xin = x.permute(0, 3, 1, 2)
+    if xin.device.type == "cpu" and torch.is_grad_enabled() and (
+            x.requires_grad or weight.requires_grad):
+        xin = xin.contiguous()
+    y = F.conv2d(xin, weight, stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1).float() + bias
 
 
@@ -177,8 +186,11 @@ class GDN(nn.Module):
         return x * norm if self.inverse else x / norm
 
 
-def _leaky_relu(x):
-    return F.leaky_relu(x, 0.01)
+def leaky_relu(x, slope: float = 0.01):
+    """flax's ``nn.leaky_relu``: ``where(x >= 0, x, slope * x)``. Its
+    gradient at exactly 0 is 1, where ``F.leaky_relu``'s is ``slope``; the
+    values are the same."""
+    return torch.where(x >= 0, x, slope * x)
 
 
 class ResidualBlock(nn.Module):
@@ -192,8 +204,8 @@ class ResidualBlock(nn.Module):
             self.Conv_2 = conv1x1(in_features, features)
 
     def forward(self, x):
-        out = _leaky_relu(self.Conv_0(x))
-        out = _leaky_relu(self.Conv_1(out))
+        out = leaky_relu(self.Conv_0(x))
+        out = leaky_relu(self.Conv_1(out))
         identity = self.Conv_2(x) if hasattr(self, "Conv_2") else x
         return out + identity
 
@@ -210,7 +222,7 @@ class ResidualBlockWithStride(nn.Module):
             self.Conv_2 = conv1x1(in_features, features, stride=stride)
 
     def forward(self, x):
-        out = _leaky_relu(self.Conv_0(x))
+        out = leaky_relu(self.Conv_0(x))
         out = self.GDN_0(self.Conv_1(out))
         skip = self.Conv_2(x) if hasattr(self, "Conv_2") else x
         return out + skip
@@ -227,7 +239,7 @@ class ResidualBlockUpsample(nn.Module):
         self.SubpelConv_1 = SubpelConv(in_features, features, r=r)
 
     def forward(self, x):
-        out = _leaky_relu(self.SubpelConv_0(x))
+        out = leaky_relu(self.SubpelConv_0(x))
         out = self.GDN_0(self.Conv_0(out))
         return out + self.SubpelConv_1(x)
 

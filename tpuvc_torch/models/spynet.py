@@ -49,9 +49,12 @@ class BasicBlock(nn.Module):
 
 @functools.lru_cache(maxsize=8)
 def _norm_consts(device, dtype):
-    """ImageNet mean/std (BGR order reversed) on ``device``, uploaded once."""
-    mean = torch.tensor([0.406, 0.456, 0.485], dtype=dtype).to(device)
-    std = torch.tensor([0.225, 0.224, 0.229], dtype=dtype).to(device)
+    """ImageNet mean/std (BGR order reversed) on ``device``, uploaded once
+    (as normal tensors even when first asked for under inference mode:
+    autograd cannot save inference tensors, and training reuses these)."""
+    with torch.inference_mode(False):
+        mean = torch.tensor([0.406, 0.456, 0.485], dtype=dtype).to(device)
+        std = torch.tensor([0.225, 0.224, 0.229], dtype=dtype).to(device)
     return mean, std
 
 

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpuvc_torch.models.layers import Conv
+from tpuvc_torch.models.layers import Conv, leaky_relu
 from tpuvc_torch.models.ms_feature import _named
 from tpuvc_torch.ops.resample import bilinear_resize
 
@@ -65,7 +65,7 @@ def _avgpool2(x):
 
 
 def _lrelu(x):
-    return F.leaky_relu(x, 0.1)
+    return leaky_relu(x, 0.1)
 
 
 class UNet(nn.Module):

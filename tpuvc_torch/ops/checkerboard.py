@@ -27,8 +27,10 @@ def _anchor_mask_np(h: int, w: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _anchor_mask_on(h: int, w: int, device) -> torch.Tensor:
-    """The (h, w, 1) mask on ``device``, uploaded once."""
-    return torch.from_numpy(_anchor_mask_np(h, w))[..., None].to(device)
+    """The (h, w, 1) mask on ``device``, uploaded once (a normal tensor even
+    under inference mode: training's autograd saves it)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_anchor_mask_np(h, w))[..., None].to(device)
 
 
 def anchor_mask(h: int, w: int) -> torch.Tensor:

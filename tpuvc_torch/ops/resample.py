@@ -51,9 +51,12 @@ def _resize_matrix(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
 def _resize_matrix_on(n_in: int, n_out: int, align_corners: bool, device,
                       dtype) -> torch.Tensor:
     """_resize_matrix as a tensor on ``device``, uploaded once: a copy from
-    host memory would wait for the device's queue on every call."""
-    m = torch.from_numpy(_resize_matrix(n_in, n_out, align_corners))
-    return m.to(device=device, dtype=dtype)
+    host memory would wait for the device's queue on every call. A normal
+    tensor even when first asked for under inference mode (autograd cannot
+    save inference tensors, and training reuses the cache)."""
+    with torch.inference_mode(False):
+        m = torch.from_numpy(_resize_matrix(n_in, n_out, align_corners))
+        return m.to(device=device, dtype=dtype)
 
 
 def bilinear_resize(
@@ -93,8 +96,10 @@ def _antialias_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=256)
 def _antialias_matrix_on(n_in: int, n_out: int, device, dtype) -> torch.Tensor:
-    """_antialias_matrix as a tensor on ``device``, uploaded once."""
-    return torch.from_numpy(_antialias_matrix(n_in, n_out)).to(device=device, dtype=dtype)
+    """_antialias_matrix as a tensor on ``device``, uploaded once (a normal
+    tensor, as ``_resize_matrix_on``'s)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_antialias_matrix(n_in, n_out)).to(device=device, dtype=dtype)
 
 
 def resize_antialias(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

@@ -24,6 +24,8 @@ import os
 import torch
 import torch.nn.functional as F
 
+from tpuvc_torch.entropy.emath import clip
+
 _SRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "warp.cu"
 )
@@ -40,12 +42,13 @@ def _scales(compat: str, H: int, W: int) -> tuple[float, float, bool]:
 
 
 def _warp_plain_core(img, flow, sx: float, sy: float) -> torch.Tensor:
-    """Gather formulation of tpuvc's ``_warp_xla``, op for op (border clamp)."""
+    """Gather formulation of tpuvc's ``_warp_xla``, op for op (border clamp,
+    with ``jnp.clip``'s gradient at the border)."""
     B, H, W, C = img.shape
     xs = torch.arange(W, dtype=flow.dtype, device=flow.device)
     ys = torch.arange(H, dtype=flow.dtype, device=flow.device)
-    x = torch.clamp(xs[None, None, :] + flow[..., 0] * sx, 0.0, W - 1.0)
-    y = torch.clamp(ys[None, :, None] + flow[..., 1] * sy, 0.0, H - 1.0)
+    x = clip(xs[None, None, :] + flow[..., 0] * sx, 0.0, W - 1.0)
+    y = clip(ys[None, :, None] + flow[..., 1] * sy, 0.0, H - 1.0)
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     fx = x - x0

@@ -1,16 +1,19 @@
-"""Reader of tpuvc's checkpoints: flax-msgpack pytrees of numpy arrays.
+"""Reader and writer of tpuvc's checkpoints: flax-msgpack pytrees of numpy
+arrays.
 
 Pure Python (``struct`` + numpy): the port runs where neither ``msgpack``
 nor ``flax`` is installed. It reads what ``flax.serialization.
 msgpack_serialize`` writes for tpuvc's checkpoints — msgpack maps, arrays
 and scalars, numpy arrays as extension type 1 (a packed ``(shape, dtype
-name, bytes)`` triple) and numpy scalars as type 3. flax's other encodings
+name, bytes)`` triple) and numpy scalars as type 3 — and writes the bytes
+tpuvc's ``save_checkpoint`` writes for the same tree. flax's other encodings
 (complex numbers, arrays above 1 GiB split into chunks) do not occur in
-these checkpoints and are not decoded.
+these checkpoints and are neither decoded nor written.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
@@ -120,3 +123,105 @@ def load_checkpoint(path: str):
     """A tpuvc checkpoint file -> nested dicts of numpy arrays."""
     with open(path, "rb") as f:
         return unpackb(f.read())
+
+
+def _sized(out: list, n: int, small: tuple[int, int] | None, codes: tuple) -> None:
+    """A msgpack length header: the fix form (base, limit) where it fits,
+    else the 8-, 16- or 32-bit form (a code of None skips that width)."""
+    if small is not None and n < small[1]:
+        out.append(struct.pack(">B", small[0] | n))
+        return
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"), (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < limit:
+            out.append(struct.pack(">B", code) + struct.pack(fmt, n))
+            return
+    raise ValueError(f"msgpack object of length {n} is too long")
+
+
+def _pack_int(out: list, v: int) -> None:
+    if -32 <= v < 128:  # positive and negative fixint
+        out.append(struct.pack(">b" if v < 0 else ">B", v))
+        return
+    forms = (("BHIQ", (0xCC, 0xCD, 0xCE, 0xCF)) if v >= 0
+             else ("bhiq", (0xD0, 0xD1, 0xD2, 0xD3)))
+    for fmt, code in zip(*forms):
+        bits = 8 * struct.calcsize(fmt)
+        if (v < 1 << bits) if v >= 0 else (v >= -(1 << (bits - 1))):
+            out.append(struct.pack(">B" + fmt, code, v))
+            return
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _pack_ext(out: list, code: int, data: bytes) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixed:
+        out.append(struct.pack(">B", fixed[len(data)]))
+    else:
+        _sized(out, len(data), None, (0xC7, 0xC8, 0xC9))
+    out.append(struct.pack(">b", code) + data)
+
+
+def _pack(out: list, obj) -> None:
+    if obj is None:
+        out.append(b"\xc0")
+    elif isinstance(obj, bool):
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _sized(out, len(data), (0xA0, 32), (0xD9, 0xDA, 0xDB))
+        out.append(data)
+    elif isinstance(obj, bytes):
+        _sized(out, len(obj), None, (0xC4, 0xC5, 0xC6))
+        out.append(obj)
+    elif isinstance(obj, (list, tuple)):
+        _sized(out, len(obj), (0x90, 16), (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, dict):
+        _sized(out, len(obj), (0x80, 16), (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)
+        if arr.dtype.hasobject or arr.nbytes > 1 << 30:
+            raise ValueError(f"cannot write a {arr.dtype} array of {arr.nbytes} bytes")
+        code = _EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR
+        _pack_ext(out, code, packb((arr.shape, arr.dtype.name, arr.tobytes("C"))))
+    else:
+        raise TypeError(f"cannot write {type(obj).__name__} to msgpack")
+
+
+def packb(obj) -> bytes:
+    """Encode one object as msgpack, numpy arrays and scalars as flax's
+    extension types (the inverse of :func:`unpackb`)."""
+    out: list[bytes] = []
+    _pack(out, obj)
+    return b"".join(out)
+
+
+def _as_tree(tree):
+    """tpuvc's ``jax.tree.map(np.asarray, tree)``: every leaf a numpy array
+    (tensors copied to the host), dicts in sorted key order."""
+    if isinstance(tree, dict):
+        return {k: _as_tree(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_as_tree(v) for v in tree)
+    if hasattr(tree, "detach"):  # a torch tensor
+        tree = tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def save_checkpoint(path: str, tree) -> None:
+    """Write ``tree`` (nested dicts of arrays, tensors and numbers) as tpuvc's
+    ``save_checkpoint`` does: the same bytes, and the file replaced
+    atomically through a temporary name."""
+    blob = packb(_as_tree(tree))
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(blob)
+    os.replace(tmp, path)

@@ -1,4 +1,4 @@
-"""tpuvc (flax) parameter trees -> tpuvc_torch state dicts.
+"""tpuvc (flax) parameter trees <-> tpuvc_torch state dicts.
 
 The port names its submodules as tpuvc's flax modules are named, so a flax
 parameter path becomes a state-dict key by joining it with dots, except:
@@ -24,7 +24,9 @@ parameter path becomes a state-dict key by joining it with dots, except:
   ``gain_matrix`` and DMC's ``gain`` / ``inv_gain`` copy verbatim
   (same reparametrisation, same orientation).
 
-tpuvc/utils/torch_import.py holds the same mapping in the other direction.
+``params_to_jax`` maps a module's parameters back to tpuvc's tree, by the
+type of the module that holds each one, so a checkpoint the port trains
+loads in both packages.
 """
 
 from __future__ import annotations
@@ -86,3 +88,54 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
         key = ".".join(parts + [name])
         out[key] = torch.tensor(np.ascontiguousarray(arr))
     return out
+
+
+def _flax_path(torch_name: str) -> list[str]:
+    """Module path ``g_a_layers.3.Conv_0`` -> flax segments
+    ``["g_a_layers_3", "Conv_0"]``."""
+    out: list[str] = []
+    for seg in torch_name.split(".") if torch_name else []:
+        if seg.isdigit() and out and out[-1] in _LISTS:
+            out[-1] = f"{out[-1]}_{seg}"
+        else:
+            out.append(seg)
+    return out
+
+
+def params_to_jax(module: torch.nn.Module) -> dict:
+    """A tpuvc_torch module's parameters -> tpuvc's flax parameter tree
+    (nested dicts of float32 numpy arrays, without the ``params`` level):
+    the inverse of :func:`params_from_jax`.
+
+    By the type of the holding module: a ``Conv``'s or a
+    ``CheckerboardConv``'s OIHW weight becomes an HWIO ``kernel`` (``conv{i}_kernel`` / ``conv{i}_bias`` in a SPyNet
+    block), a ``DeformConv``'s stays an HWIO ``weight``, a ``Deconv``'s
+    weight and bias go to a ``ConvTranspose_0`` child, the kernel
+    spatially flipped; everything else is copied."""
+    from tpuvc_torch.models.layers import Conv, Deconv
+    from tpuvc_torch.models.spynet import BasicBlock
+    from tpuvc_torch.ops.checkerboard import CheckerboardConv
+    from tpuvc_torch.ops.deform import DeformConv
+
+    modules = dict(module.named_modules())
+    tree: dict = {}
+    for mname, m in modules.items():
+        path = _flax_path(mname)
+        parent = modules.get(mname.rpartition(".")[0]) if mname else None
+        for pname, p in m.named_parameters(recurse=False):
+            arr = p.detach().cpu().float().numpy()
+            where, name = path, pname
+            if isinstance(m, Deconv):
+                where = path + ["ConvTranspose_0"]
+                if pname == "weight":
+                    arr, name = arr.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
+            elif isinstance(m, (Conv, CheckerboardConv, DeformConv)) and pname == "weight":
+                arr = arr.transpose(2, 3, 1, 0)
+                name = "weight" if isinstance(m, DeformConv) else "kernel"
+            if isinstance(m, Conv) and isinstance(parent, BasicBlock):
+                where, name = path[:-1], f"{path[-1]}_{name}"
+            node = tree
+            for seg in where:
+                node = node.setdefault(seg, {})
+            node[name] = np.array(arr, order="C")  # a copy: no view of the live weights
+    return tree
