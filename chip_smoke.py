@@ -14,8 +14,9 @@ encode_p / decode_p CLIs code whole synthetic sequences (ELIC intra + B-
 or P-frames) to a file and back, the RD-eval CLI evaluates a sequence,
 FlowGuidedB codes at every down ratio, bench_torch.py runs bench.py's
 measurement, and the train CLI trains every family at batch 8 on 256x256
-crops; each decode must reproduce its encoder's reconstructions bit for
-bit. Each phase runs under its own time limit and prints JSON lines:
+crops, reference checkpoints imported at full width code B-frames, and the
+still-image eval runs at the Kodak size; each decode must reproduce its
+encoder's reconstructions bit for bit. Each phase runs under its own time limit and prints JSON lines:
 
   device             card name, power limit, software versions
   build              warp and deform kernels (nvcc, in parallel) and rANS
@@ -23,6 +24,11 @@ bit. Each phase runs under its own time limit and prints JSON lines:
   warp_check         kernel vs warp_plain per shape: max abs error (<= 1e-5)
                      and bit for bit,
                      kernel / plain / F.grid_sample times, byte bound
+  warp_and_blend     ops.warp.warp_and_blend at (4,1088,1920,3) lhbdc: two
+                     warp kernel launches, bit for bit the blend of two
+                     warp_plain calls; kernel-path and plain times
+  pmf_native         the native pmf -> quantized CDF (coder/csrc/rans.cpp)
+                     equal to the numpy quantizer on 50 random pmfs
   deform_check       kernel vs deform_plain at the v4 and v3 paths' three
                      shapes each (16 and 8 groups; batch 2: three offset
                      spreads; batch 1: smooth): max
@@ -94,6 +100,18 @@ bit. Each phase runs under its own time limit and prints JSON lines:
   trained_checkpoint_codes  train_cli's LHBDC checkpoint codes a 1088x1920
                      B-frame through encode_b --weights; decode_b in a
                      fresh process must reproduce it bit for bit
+  imported_checkpoint_codes  reference .pth checkpoints of every importer
+                     family (LHBDC N=128, Flex-Rate N=128, ELIC, DeformB,
+                     FlowGuidedB at full width, tests/torch_reference_sd.py)
+                     converted by the import_torch CLI and loaded strictly;
+                     the imported LHBDC and FlowGuidedB each code a 1088x1920
+                     B-frame through encode_b --weights, decode_b in a fresh
+                     process must reproduce it bit for bit
+  image_eval_cli     the still-image eval CLI (test_image) on three
+                     synthetic 768x512 images at levels 0 (the imported
+                     ELIC) and 1 (seeded): images/s, per-level PSNR and bpp,
+                     peak memory; the RD-eval CLI's write_plots exits naming
+                     matplotlib where it is missing (draws where it is not)
   adaptive_ratios    FlowGuidedB coded at down ratios 2, 4, 8, 16, each
                      stream decoded bit for bit
   bench_torch        bench_torch.py in a subprocess: its last record must
@@ -1928,6 +1946,271 @@ def trained_checkpoint_codes(torch, tmp: str) -> dict:
     return row
 
 
+# The reference checkpoints imported_checkpoint_codes builds at full width
+# (tests/torch_reference_sd.py): (importer family, its widths, where
+# the port's CLIs read the converted file, the port model it loads into,
+# built by _port_model).
+IMPORTED = [
+    ("lhbdc", {"n": 128}, "compression_1626.msgpack", "LHBDC(N=128)"),
+    ("flexrate", {"n": 128}, "flexrate.msgpack", "BidirFlowRef(N=128)"),
+    ("elic", {}, os.path.join("elic", "level_0", "latest.msgpack"), "ELIC()"),
+    ("deform_b", {}, "deform_b.msgpack", "DeformB()"),
+    ("flowguided", {}, "flowguided_b.msgpack", "FlowGuidedB()"),
+]
+# The imported families that code a B-frame: (encode_b --family, its
+# arguments, the kernels it must launch, its name in launches_by_path).
+IMPORTED_CODES = [
+    ("lhbdc", ["--l", "1626"], ["warp"], "imported_lhbdc_encode_b"),
+    ("flowguided_b", ["--s", "1.0"], ["warp", "deform"], "imported_flowguided_encode_b"),
+]
+
+
+def _port_model(family: str):
+    """The port model an imported family's checkpoint loads into."""
+    if family == "lhbdc":
+        from tpuvc_torch.models.lhbdc import LHBDC
+
+        return LHBDC(N=128)
+    if family == "flexrate":
+        from tpuvc_torch.models.flexrate import BidirFlowRef
+
+        return BidirFlowRef(N=128)
+    if family == "elic":
+        from tpuvc_torch.models.elic import ELIC
+
+        return ELIC()
+    if family == "deform_b":
+        from tpuvc_torch.models.deform_b import DeformB
+
+        return DeformB()
+    from tpuvc_torch.models.flowguided_b import FlowGuidedB
+
+    return FlowGuidedB()
+
+
+def imported_checkpoint_codes(torch, tmp: str) -> dict:
+    """Reference (PyTorch) checkpoints of every importer family, built at
+    full width from a numpy seed (tests/torch_reference_sd.py) and saved
+    with torch.save (LHBDC in its trainer's {"state_dict": ...} wrapper), go
+    through ``python -m tpuvc_torch.cli.import_torch`` (one subprocess each,
+    all started together); each result must load strictly into its port
+    model, with no unmapped key. Then the imported LHBDC and FlowGuidedB each
+    code one 1088x1920 B-frame through ``encode_b --weights`` (in this
+    process, launches counted), and ``decode_b`` decodes each stream in a
+    fresh process: its reconstruction must equal the encoder's bit for bit.
+    Returns {"imports": rows, "codes": {family: row}, "weights": dir}."""
+    import hashlib
+    import io
+
+    import numpy as np
+
+    sys.path.append(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_reference_sd as R
+
+    from tpuvc_torch.cli import encode_b
+    from tpuvc_torch.data.frames import save_png
+    from tpuvc_torch.data.uvg import SyntheticSequence
+    from tpuvc_torch.eval.metrics import psnr_uint8_np
+    from tpuvc_torch.utils.checkpoint import load_checkpoint
+    from tpuvc_torch.utils.convert import params_from_jax
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    wdir = os.path.join(tmp, "imported_weights")
+    os.makedirs(os.path.join(wdir, "elic", "level_0"), exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for i, (family, widths, target, _) in enumerate(IMPORTED):
+        pth = os.path.join(tmp, f"{family}.pth")
+        R.save_pth(pth, R.STATE_DICTS[family](np.random.default_rng(20 + i), **widths),
+                   wrap=family == "lhbdc")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "tpuvc_torch.cli.import_torch", "--input", pth,
+             "--output", os.path.join(wdir, target), "--family", family],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    imports = []
+    for (family, widths, target, desc), proc in zip(IMPORTED, procs):
+        out, err = proc.communicate(timeout=180)
+        if proc.returncode != 0 or "WARNING" in out:
+            raise AssertionError(f"import_torch --family {family} failed:\n{out}{err[-4000:]}")
+        model = _port_model(family)
+        model.load_state_dict(params_from_jax(load_checkpoint(os.path.join(wdir, target))),
+                              strict=True)
+        imports.append({"family": family, "model": desc, "cli": out.strip().splitlines()[0],
+                        "parameters": sum(p.numel() for p in model.parameters())})
+        del model
+    row = {"phase": "imported_checkpoint_codes", "imports": imports,
+           "import_and_load_s": time.perf_counter() - t0}
+    emit(row)
+
+    h, w = FRAME
+    seq = SyntheticSequence(n_frames=3, h=h, w=w, seed=5)
+    names = [os.path.join(tmp, f"ic_{k}.png") for k in ("ref_1", "current", "ref_2")]
+    for i, name in enumerate(names):
+        save_png(name, seq.u8(i)[0, :h, :w])
+    codes, decoders = {}, []
+    for family, args, kernels, path in IMPORTED_CODES:
+        bin_path = os.path.join(tmp, f"imported_{family}.bin")
+        common = ["--family", family, "--ref_1", names[0], "--ref_2", names[2],
+                  "--weights", wdir, "--device", "cuda", "--bin", bin_path]
+        release_cache(torch)
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            bits, x_hat = encode_b.main(common + ["--current", names[1]] + args)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        launches = read_launches()
+        codes[family] = {
+            "phase": "imported_checkpoint_codes", "family": family, "path": path,
+            "frame": [h, w],
+            "bytes": bits.num_bytes, "bpp": 8 * bits.num_bytes / (h * w),
+            "psnr_db": psnr_uint8_np(seq.u8(1)[0, :h, :w],
+                                     x_hat[0, :h, :w].clamp(0, 1).cpu().numpy()),
+            "encode_s": enc_s, "launches": launches,
+            "finite": bool(torch.isfinite(x_hat).all()),
+            "enc_sha": hashlib.sha256(x_hat.cpu().numpy().tobytes()).hexdigest(),
+        }
+        del x_hat
+        decoders.append((family, kernels, subprocess.Popen(
+            [sys.executable, "-c", DECODE_B_IN_A_NEW_PROCESS, *common,
+             "--out", os.path.join(tmp, f"imported_{family}.png")],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    for family, kernels, proc in decoders:
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"decode_b of the imported {family} failed:\n{err[-4000:]}")
+        code = codes[family]
+        code["decode_bit_exact"] = json.loads(out.strip().splitlines()[-1])["sha256"] == \
+            code.pop("enc_sha")
+        emit(code)
+        if not (code["decode_bit_exact"] and code["finite"]):
+            raise AssertionError(f"the imported {family} does not code bit-exact: {code}")
+        for k in kernels:
+            if code["launches"][k] == 0:
+                raise AssertionError(f"the imported {family} launched no {k} kernel")
+    return {"imports": imports, "codes": codes, "weights": wdir}
+
+
+def image_eval_cli(torch, intra_weights: str, tmp: str) -> dict:
+    """The still-image eval CLI (tpuvc_torch.cli.test_image) on the card:
+    three synthetic Kodak-size (768x512) images a level at levels 0 and 1,
+    level 0 from the ELIC weights imported_checkpoint_codes converted
+    (``{intra_weights}/level_0/latest.msgpack``), level 1 from the seeded
+    weights, in float32 (the CLI's default) and again in bfloat16 (reported
+    beside it). Then the RD-eval CLI with ``write_plots=true``: where
+    matplotlib is missing it must exit, before any work, naming it;
+    where it is installed it must write its figures."""
+    import importlib.util
+    import io
+    import math
+
+    from tpuvc_torch.cli import test_image
+
+    release_cache(torch)
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--device", "cuda", "dataset.name=synthetic", "dataset.height=512",
+            "dataset.width=768", "levels=(0,1)", f"intra_weights={intra_weights}",
+            f"output_dir={os.path.join(tmp, 'image_eval')}"]
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        out = test_image.main(argv)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with contextlib.redirect_stdout(io.StringIO()):
+        bf16 = test_image.main(argv + ["compute_dtype=bfloat16"])
+
+    def after_first(o):
+        return o["images"] / o["levels"][1]["seconds"]
+
+    levels = out["levels"]
+    row = {"phase": "image_eval_cli", "argv": argv, "images_per_level": out["images"],
+           "per_level": levels,
+           "first_level_images_per_s": out["images"] / levels[0]["seconds"],
+           "images_per_s_after_first_level": after_first(out), "peak_mem_gib": peak,
+           "loaded_level_0": "level 0: loaded" in printed.getvalue(),
+           "bfloat16": {"per_level": bf16["levels"],
+                        "images_per_s_after_first_level": after_first(bf16)}}
+    plots_dir = os.path.join(tmp, "plots")
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    plot_cmd = [sys.executable, "-m", "tpuvc_torch.cli.test", "--device", "cuda",
+                "write_plots=true", f"output_dir={plots_dir}"]
+    if has_mpl:
+        plot_cmd += ["dataset.name=synthetic", 'dataset.sequences={"synth": 5}',
+                     "dataset.gop=4", "dataset.width=128", "dataset.height=128",
+                     "model.family=lhbdc", "levels=(0,)"]
+    proc = subprocess.run(plot_cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300)
+    row["write_plots"] = {"matplotlib": has_mpl, "returncode": proc.returncode,
+                          "message": (proc.stderr.strip().splitlines() or [""])[-1]}
+    emit(row)
+    finite = all(math.isfinite(v["psnr"]) and math.isfinite(v["bpp"]) and v["bpp"] > 0
+                 for v in levels.values())
+    if sorted(levels) != [0, 1] or not finite or not row["loaded_level_0"]:
+        raise AssertionError(f"image_eval_cli: bad rows: {row}")
+    if has_mpl:
+        if proc.returncode != 0 or not os.path.exists(os.path.join(plots_dir, "rd_curve.png")):
+            raise AssertionError(f"write_plots drew no figures: {proc.stderr[-4000:]}")
+    elif proc.returncode == 0 or "matplotlib" not in row["write_plots"]["message"]:
+        raise AssertionError(f"write_plots without matplotlib did not exit naming it: {row}")
+    return row
+
+
+def warp_and_blend_check(torch) -> dict:
+    """``ops.warp.warp_and_blend`` on CUDA tensors at LHBDC's
+    motion-compensation shape (4,1088,1920,3), lhbdc mode: two warp kernel
+    launches, bit for bit the blend of two ``warp_plain`` calls."""
+    from tpuvc_torch.ops import warp as W
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shape = (4, 1088, 1920, 3)
+    img_fw, img_bw = (torch.rand(shape, generator=gen, device="cuda") for _ in range(2))
+    flow_fw, flow_bw = (4.0 * torch.randn((*shape[:3], 2), generator=gen, device="cuda")
+                        for _ in range(2))
+    mask = torch.rand((*shape[:3], 1), generator=gen, device="cuda")
+    args = (img_fw, flow_fw, img_bw, flow_bw, mask, "lhbdc")
+    before = W.warp_kernel.launches
+    out = W.warp_and_blend(*args)
+    launched = W.warp_kernel.launches - before
+
+    def plain():
+        return (mask * W.warp_plain(img_fw, flow_fw, "lhbdc")
+                + (1.0 - mask) * W.warp_plain(img_bw, flow_bw, "lhbdc"))
+
+    ref = plain()
+    torch.cuda.synchronize()
+    row = {"phase": "warp_and_blend", "shape": list(shape), "compat": "lhbdc",
+           "kernel_launches": launched, "max_abs_err": float((out - ref).abs().max()),
+           "bit_exact": bool(torch.equal(out, ref)),
+           "ms": time_ms(torch, lambda: W.warp_and_blend(*args), 20),
+           "plain_ms": time_ms(torch, plain, 3, 1)}
+    emit(row)
+    if not (row["bit_exact"] and launched == 2):
+        raise AssertionError(f"warp_and_blend: {row}")
+    return row
+
+
+def pmf_native_check() -> dict:
+    """The port's native pmf -> quantized CDF (coder/csrc/rans.cpp) against
+    the numpy quantizer on 50 random pmfs, as tpuvc's
+    TestNativeCdfQuantizer holds tpuvc's: equal arrays."""
+    import numpy as np
+
+    from tpuvc_torch.coder.rans import pmf_to_quantized_cdf_native
+    from tpuvc_torch.entropy.cdf import pmf_to_quantized_cdf
+
+    rng = np.random.default_rng(0)
+    equal = 0
+    for trial in range(50):
+        n = int(rng.integers(1, 300))
+        pmf = rng.random(n) ** 3
+        if trial % 3 == 0:
+            pmf[rng.integers(0, n)] = 0.0
+        equal += bool(np.array_equal(pmf_to_quantized_cdf_native(pmf), pmf_to_quantized_cdf(pmf)))
+    row = {"phase": "pmf_native", "pmfs": 50, "equal": equal}
+    emit(row)
+    if equal != 50:
+        raise AssertionError(f"pmf_to_quantized_cdf_native differs from numpy: {row}")
+    return row
+
+
 def build_kernels() -> dict:
     """Build the CUDA kernels (one nvcc each, all started together) and the
     rANS library; returns the seconds each took."""
@@ -1971,6 +2254,10 @@ def main() -> int:
 
     with phase("warp_check", 300):
         warp_rows = warp_check(torch)
+    with phase("warp_and_blend", 60):
+        warp_and_blend_check(torch)
+    with phase("pmf_native", 60):
+        pmf_native_check()
     with phase("deform_check", 360):
         deform_rows = deform_check(torch)
     with phase("train_kernel_check", 240):
@@ -2017,6 +2304,12 @@ def main() -> int:
     with phase("trained_checkpoint_codes", 180):
         trained = trained_checkpoint_codes(torch, train_tmp.name)
     train_tmp.cleanup()
+    imported_tmp = tempfile.TemporaryDirectory()
+    with phase("imported_checkpoint_codes", 240):
+        imported = imported_checkpoint_codes(torch, imported_tmp.name)
+    with phase("image_eval_cli", 180):
+        image_eval_cli(torch, os.path.join(imported["weights"], "elic"), imported_tmp.name)
+    imported_tmp.cleanup()
     with phase("adaptive_ratios", 180):
         adaptive = adaptive_ratios(torch)
     with phase("bench_torch", 480):
@@ -2043,6 +2336,7 @@ def main() -> int:
         # the train CLI's subprocesses count their own launches (their summary)
         paths.update({r["path"]: r["launches"][kernel] for r in train_rows})
         paths["trained_checkpoint_encode_b"] = trained["launches"][kernel]
+        paths.update({r["path"]: r["launches"][kernel] for r in imported["codes"].values()})
         return paths
 
     warp_head = warp_rows[0]  # the largest shape: SPyNet's finest level

@@ -2,7 +2,7 @@
 
 Run from the repository root:
 
-    python3 scripts/profile_torch_main_path.py [--family lhbdc|flowguided_b|deform_b|flexrate|dmc|elic|eval_lhbdc|eval_flowguided_b]
+    python3 scripts/profile_torch_main_path.py [--family lhbdc|flowguided_b|deform_b|flexrate|dmc|elic|eval_lhbdc|eval_flowguided_b|image_eval|image_eval_bf16]
 
 Codes chip_smoke.py's window (1088x1920, GOP-16, 2 GOPs, bfloat16 policy,
 seeded weights) for one codec family: LHBDC(N=128) at batch 4 (the
@@ -17,8 +17,11 @@ decoded with decode_sequence (chip_smoke.py's main_path_dmc); or, with
 ``eval_flowguided_b``, the RD-eval CLI's level loop on chip_smoke.py's
 eval_cli configurations (17 frames; LHBDC level-batched at batch cap 8 in
 bfloat16, FlowGuidedB sequential with the down-ratio search and MS-SSIM in
-float32), models built before the timed runs; the eval has no decode side,
-so its "encode" is the eval and its "decode" is empty. It codes once to
+float32), models built before the timed runs; or, with ``image_eval``
+(``image_eval_bf16``), the still-image eval's level loop on chip_smoke.py's
+image_eval_cli images (three synthetic 768x512 images, ELIC N=192 M=320
+seeded, likelihood forward, float32 or bfloat16). An eval has no decode
+side, so its "encode" is the eval and its "decode" is empty. It codes once to
 warm up, then encodes and decodes again under torch.profiler, with the
 determinism settings every CLI uses (TF32 off). Prints JSON lines: the
 wall time of each side, the summed device time of all kernels and its
@@ -71,7 +74,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--family", default="lhbdc", choices=(
         "lhbdc", "flowguided_b", "deform_b", "flexrate", "dmc", "elic", "eval_lhbdc",
-        "eval_flowguided_b"))
+        "eval_flowguided_b", "image_eval", "image_eval_bf16"))
     codec = parser.parse_args().family
     sys.path.insert(0, ROOT)
     import bench_torch
@@ -123,6 +126,23 @@ def main() -> int:
             with contextlib.redirect_stdout(io.StringIO()):
                 return eval_cli._run_levels(cfg, intra, model, TestInfographic(),
                                             torch.device("cuda"))
+
+        def decode_window(_):
+            return None
+    elif codec.startswith("image_eval"):
+        from tpuvc_torch.cli.test import make_intra_fn
+        from tpuvc_torch.data.kodak import SyntheticImages
+        from tpuvc_torch.eval.image_runner import eval_images
+        from tpuvc_torch.models.elic import ELIC
+
+        forward = make_intra_fn(ELIC(generator=torch.Generator().manual_seed(0)).cuda().eval())
+        images = SyntheticImages(n=3, h=512, w=768)
+        batch, n_real = 1, len(images)
+        dtype = "bfloat16" if codec.endswith("bf16") else "float32"
+
+        def code_window():
+            with torch.inference_mode():
+                return eval_images(images, lambda x: forward(torch.from_numpy(x).cuda()))
 
         def decode_window(_):
             return None

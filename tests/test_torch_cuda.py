@@ -88,6 +88,24 @@ def test_warp_kernel_misaligned_tensors(cuda, C):
     assert torch.equal(out, ref)
 
 
+@pytest.mark.parametrize("compat", ["exact", "lhbdc", "flexrate"])
+def test_warp_and_blend_runs_the_kernel(cuda, compat):
+    """On CUDA tensors warp_and_blend launches the warp kernel for each
+    direction and equals the blend of two warp_plain calls bit for bit."""
+    from tpuvc_torch.ops.warp import warp_and_blend, warp_kernel, warp_plain
+
+    img_fw, flow_fw = (t.to(cuda) for t in _inputs((2, 37, 64, 3), seed=3))
+    img_bw, flow_bw = (t.to(cuda) for t in _inputs((2, 37, 64, 3), seed=4))
+    mask = torch.rand((2, 37, 64, 1), generator=torch.Generator().manual_seed(5)).to(cuda)
+    before = warp_kernel.launches
+    out = warp_and_blend(img_fw, flow_fw, img_bw, flow_bw, mask, compat)
+    assert warp_kernel.launches == before + 2
+    ref = (mask * warp_plain(img_fw, flow_fw, compat)
+           + (1.0 - mask) * warp_plain(img_bw, flow_bw, compat))
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
 def test_warp_kernel_repeat_launch_is_bit_identical(cuda):
     from tpuvc_torch.ops.warp import warp_kernel
 

@@ -26,8 +26,11 @@ Weights: ``{intra_weights}/latest.msgpack`` and
 ``{inter_weights}/latest.msgpack`` (tpuvc's flax checkpoints, converted by
 ``params_from_jax``) when present, seeded weights otherwise. Runs on
 ``--device`` (default ``cuda``; no quiet fallback to the CPU).
-``write_plots`` and ``device_count > 1`` are not ported yet and exit naming
-their ROADMAP.md item.
+``write_plots=true`` draws ``rd_curve.png`` and one
+``{seq}_l{level}_frames.png`` per sequence and level beside the results
+CSV; without matplotlib it exits naming it before the eval starts.
+``device_count > 1`` is not ported yet and exits naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -39,10 +42,15 @@ import os
 import time
 
 def check_unported(cfg) -> None:
-    """Exit on the options whose tpuvc code paths are not ported yet."""
+    """Exit, before any work, on the options this machine or the port
+    cannot run: ``write_plots`` without matplotlib, ``device_count > 1``."""
     if cfg.write_plots:
-        raise SystemExit("write_plots is not ported to tpuvc_torch yet: "
-                         "ROADMAP.md queue A, A16 (eval/plots.py)")
+        from tpuvc_torch.eval.plots import require_matplotlib
+
+        try:
+            require_matplotlib()
+        except ImportError as e:
+            raise SystemExit(f"write_plots=true: {e}") from e
     if cfg.device_count > 1:
         raise SystemExit("device_count > 1 is not ported to tpuvc_torch yet: "
                          "ROADMAP.md queue A, A16 (parallel/mesh.py)")
@@ -290,9 +298,38 @@ def main(argv=None):
         print(f"{r['level']} {r['sequence']} {r['psnr']:.4f} {r['bpp']:.6f}")
     if ratios:
         print(f"down ratios chosen: {dict(sorted(ratios.items()))}")
+    if cfg.write_plots:
+        write_plots(cfg, info)
     print(f"elapsed {seconds:.1f}s")
     return {"results": out, "info": info, "down_ratios": dict(ratios),
             "frames": len(info.rows), "seconds": seconds}
+
+
+def write_plots(cfg, info) -> list[str]:
+    """RD curve (levels aggregated over sequences, vs the BD anchors) and
+    one per-frame PSNR/bpp twin-axis figure per (sequence, level), as
+    tpuvc's ``_write_plots``; returns the paths written."""
+    from tpuvc_torch.eval.plots import per_frame_figure, rd_curve
+
+    lv = info.per_level()
+    paths = [rd_curve(
+        {cfg.model.family: ([r["bpp"] for r in lv], [r["psnr"] for r in lv])},
+        os.path.join(cfg.output_dir, "rd_curve.png"),
+        title=f"{cfg.model.family} RD",
+    )]
+    groups: dict = {}
+    for r in info.rows:
+        groups.setdefault((r["video"], r["level"]), []).append(r)
+    for seq, level in sorted(groups):
+        rows = sorted(groups[(seq, level)], key=lambda r: r["frame_num"])
+        paths.append(per_frame_figure(
+            [r["psnr"] for r in rows], [r["size"] for r in rows], rows[0]["pixels"],
+            os.path.join(cfg.output_dir, f"{seq}_l{level}_frames.png"),
+            title=f"{seq} level {level}",
+        ))
+    for path in paths:
+        print(f"wrote {path}")
+    return paths
 
 
 def _run_levels(cfg, intra_pack, inter_pack, info, device):

@@ -16,6 +16,7 @@
 // rANS parameters: 16-bit probability precision, 32-bit state,
 // byte-wise renormalization, L = 1 << 23.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -228,6 +229,65 @@ int tpuvc_torch_rans_decode(const uint8_t* stream, int nbytes, const int32_t* in
     out_symbols[i] = value + offsets[idx];
   }
   return 0;
+}
+
+// PMF -> quantized CDF (the C++ twin of tpuvc_torch/entropy/cdf.py::
+// pmf_to_quantized_cdf; computes what tpuvc's tpuvc_pmf_to_quantized_cdf
+// computes). Every symbol gets a frequency >= 1; the flooring deficit is
+// granted round-robin to the largest-probability symbols (a stable order,
+// ties by index), a surplus is taken one at a time from the largest
+// frequency. Returns 0 on success, -2 on malformed input.
+int tpuvc_torch_pmf_to_quantized_cdf(const double* pmf, int n, int precision,
+                                     int32_t* out_cdf /* size n+1 */) {
+  if (n < 1 || precision < 1 || precision > 24) return -2;
+  const int64_t total = int64_t{1} << precision;
+  if (n > total) return -2;
+
+  std::vector<double> p(pmf, pmf + n);
+  double norm = 0.0;
+  for (double& v : p) {
+    if (!(v == v) || v > 1e300) return -2;  // NaN / inf
+    if (v < 0.0) v = 0.0;
+    norm += v;
+  }
+  std::vector<int64_t> freqs(n);
+  if (norm <= 0.0) {
+    const int64_t base = total / n;
+    const int64_t rem = total - base * n;
+    for (int i = 0; i < n; ++i) freqs[i] = base + (i < rem ? 1 : 0);
+  } else {
+    int64_t sum = 0;
+    for (int i = 0; i < n; ++i) {
+      int64_t f = static_cast<int64_t>(p[i] / norm * total);
+      if (f < 1) f = 1;
+      freqs[i] = f;
+      sum += f;
+    }
+    const int64_t deficit = total - sum;
+    if (deficit > 0) {
+      std::vector<int> order(n);
+      for (int i = 0; i < n; ++i) order[i] = i;
+      std::stable_sort(order.begin(), order.end(),
+                       [&](int a, int b) { return p[a] > p[b]; });
+      for (int64_t k = 0; k < deficit; ++k) freqs[order[k % n]] += 1;
+    } else {
+      for (int64_t k = 0; k < -deficit; ++k) {
+        int imax = 0;
+        for (int i = 1; i < n; ++i) {
+          if (freqs[i] > freqs[imax]) imax = i;
+        }
+        if (freqs[imax] <= 1) return -2;
+        freqs[imax] -= 1;
+      }
+    }
+  }
+  out_cdf[0] = 0;
+  int64_t acc = 0;
+  for (int i = 0; i < n; ++i) {
+    acc += freqs[i];
+    out_cdf[i + 1] = static_cast<int32_t>(acc);
+  }
+  return acc == total ? 0 : -2;
 }
 
 }  // extern "C"

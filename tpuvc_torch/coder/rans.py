@@ -38,6 +38,10 @@ def _get_lib():
                 i32p, ctypes.c_int, ctypes.c_int, i32p, i32p,
                 i32p,
             ]
+            lib.tpuvc_torch_pmf_to_quantized_cdf.restype = ctypes.c_int
+            lib.tpuvc_torch_pmf_to_quantized_cdf.argtypes = [
+                ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int, i32p,
+            ]
             _lib = lib
     return _lib
 
@@ -45,6 +49,20 @@ def _get_lib():
 def build() -> None:
     """Compile (or load the cached) rANS library now."""
     _get_lib()
+
+
+def pmf_to_quantized_cdf_native(pmf, precision: int = 16) -> np.ndarray:
+    """C++ pmf -> quantized CDF; equal to
+    tpuvc_torch.entropy.cdf.pmf_to_quantized_cdf (tests hold the match)."""
+    pmf = np.ascontiguousarray(pmf, dtype=np.float64)
+    out = np.empty(pmf.size + 1, dtype=np.int32)
+    rc = _get_lib().tpuvc_torch_pmf_to_quantized_cdf(
+        pmf.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        pmf.size, precision, _i32p(out),
+    )
+    if rc != 0:
+        raise ValueError(f"pmf_to_quantized_cdf failed (code {rc})")
+    return out
 
 
 def _as_i32(a) -> np.ndarray:

@@ -113,7 +113,7 @@ class TrainConfig:
     #: needs crop >= 176).
     distortion: str = "mse"
     #: LHBDC-family rate weight (lambda, LHBDC/encode_B.py:27); for
-    #: ms_ssim use an MSSSIM_ALPHAS point (tpuvc.train.loss; not ported yet).
+    #: ms_ssim use an MSSSIM_ALPHAS point (tpuvc_torch.train.loss).
     alpha: float = 1626.0
     #: ELIC intra rate weight (lambda in lambda*255^2*MSE + bpp; the
     #: compressai-style quality grid — 0.0207 ~ mid-quality). Pairs with

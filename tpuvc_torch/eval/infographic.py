@@ -5,8 +5,10 @@ One row per coded frame; the aggregations are tpuvc's pandas group-bys
 (groups sorted by key, means by pandas' compensated summation), returned
 as lists of row dicts in pandas' ``to_dict("records")`` layout.
 ``results_csv`` writes the ICIP-style results CSV (level, sequence, psnr,
-bpp) with the same bytes as tpuvc's ``DataFrame.to_csv``. tpuvc's
-``to_excel`` is not ported (ROADMAP.md queue A, A16).
+bpp) with the same bytes as tpuvc's ``DataFrame.to_csv``; the eval CLI's
+``write_plots`` draws from ``per_level`` and ``rows``. tpuvc's
+``to_excel`` is not ported: it needs openpyxl (ROADMAP.md queue A, not
+queued).
 """
 
 from __future__ import annotations

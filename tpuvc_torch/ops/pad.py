@@ -49,3 +49,8 @@ def unpad(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """Crop H, W (dims -3, -2) back to ``size`` = (h, w)."""
     h, w = size
     return x[..., :h, :w, :]
+
+
+def padded_size(h: int, w: int, multiple: int = 64) -> tuple[int, int]:
+    """Static helper: the (H, W) after pad_to_multiple."""
+    return (-(-h // multiple) * multiple, -(-w // multiple) * multiple)

@@ -141,3 +141,16 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     # (..., H, W, C, ry, rx) -> (..., H, ry, W, rx, C)
     perm = list(range(n)) + [n, n + 3, n + 1, n + 4, n + 2]
     return x.permute(perm).reshape(*lead, H * r, W * r, C)
+
+
+def pixel_unshuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(..., H*r, W*r, C) -> (..., H, W, C*r*r): the inverse of
+    :func:`pixel_shuffle`."""
+    *lead, Hr, Wr, C = x.shape
+    H, W = Hr // r, Wr // r
+    assert H * r == Hr and W * r == Wr
+    n = len(lead)
+    x = x.reshape(*lead, H, r, W, r, C)
+    # (..., H, ry, W, rx, C) -> (..., H, W, C, ry, rx)
+    perm = list(range(n)) + [n, n + 2, n + 4, n + 1, n + 3]
+    return x.permute(perm).reshape(*lead, H, W, C * r * r)

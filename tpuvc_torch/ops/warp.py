@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import ctypes
 import os
+import sys
+import types
 
 import torch
 import torch.nn.functional as F
@@ -199,3 +201,28 @@ def warp(img: torch.Tensor, flow: torch.Tensor, compat: str = "exact") -> torch.
     if torch.is_grad_enabled() and (img.requires_grad or flow.requires_grad):
         return _WarpKernelFn.apply(img, flow, sx, sy, zero)
     return warp_kernel(img, flow, sx, sy, zero)
+
+
+def warp_and_blend(img_fw: torch.Tensor, flow_fw: torch.Tensor, img_bw: torch.Tensor,
+                   flow_bw: torch.Tensor, mask: torch.Tensor,
+                   compat: str = "exact") -> torch.Tensor:
+    """Bi-directional motion compensation: mask*warp(fw) + (1-mask)*warp(bw)
+    (LHBDC/model/m.py:61-65). Both warps go through :func:`warp`, so on a
+    CUDA tensor each launches the kernel."""
+    fw = warp(img_fw, flow_fw, compat)
+    bw = warp(img_bw, flow_bw, compat)
+    return mask * fw + (1.0 - mask) * bw
+
+
+class _CallableModule(types.ModuleType):
+    """tpuvc's ``ops`` package exports the function :func:`warp` under this
+    module's name. Here ``tpuvc_torch.ops.warp`` stays this module (its
+    kernel wrapper and counts are reached through it) and, called, is
+    :func:`warp`, so ``from tpuvc_torch.ops import warp; warp(img, flow)``
+    works as it does in tpuvc."""
+
+    def __call__(self, img, flow, compat: str = "exact"):
+        return warp(img, flow, compat)
+
+
+sys.modules[__name__].__class__ = _CallableModule
