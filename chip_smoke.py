@@ -14,9 +14,10 @@ encode_p / decode_p CLIs code whole synthetic sequences (ELIC intra + B-
 or P-frames) to a file and back, the RD-eval CLI evaluates a sequence,
 FlowGuidedB codes at every down ratio, bench_torch.py runs bench.py's
 measurement, and the train CLI trains every family at batch 8 on 256x256
-crops, reference checkpoints imported at full width code B-frames, and the
-still-image eval runs at the Kodak size; each decode must reproduce its
-encoder's reconstructions bit for bit. Each phase runs under its own time limit and prints JSON lines:
+crops, reference checkpoints imported at full width code B-frames, the
+still-image eval runs at the Kodak size, and the mesh paths run in two
+torchrun ranks sharing the card over gloo (and NCCL in a one-rank group);
+each decode must reproduce its encoder's reconstructions bit for bit. Each phase runs under its own time limit and prints JSON lines:
 
   device             card name, power limit, software versions
   build              warp and deform kernels (nvcc, in parallel) and rANS
@@ -59,7 +60,7 @@ encoder's reconstructions bit for bit. Each phase runs under its own time limit 
   main_path_v3       DeformB: the same (deform launches, offset spread)
   main_path_flexrate Flex-Rate: the same (warp launches, the predicted
                      flow's and coded refinement's spread)
-  main_path_dmc      DMC at batch 1 from a source-frame DPB: 16 chained
+  main_path_dmc      DMC at batch 1 from a source-frame DPB: 8 chained
                      P-frames at down ratio 1.0, then 4 at 1.5, encoded
                      (encode_async) and decoded (decode_sequence): P-frames/s,
                      bpp, PSNR, decode_bit_exact, warp launches, the spread
@@ -75,8 +76,8 @@ encoder's reconstructions bit for bit. Each phase runs under its own time limit 
                      the down ratios --adaptive chose
   sequence_cli_v3_flexrate  the same for DeformB and Flex-Rate, level-batched
                      33 frames each at their windows' batch caps
-  sequence_cli_dmc   encode_p --adaptive on 17 synthetic 1088x1920 frames
-                     (ELIC I-frame, 16 DMC P-frames), decode_p in a fresh
+  sequence_cli_dmc   encode_p --adaptive on 9 synthetic 1088x1920 frames
+                     (ELIC I-frame, 8 DMC P-frames), decode_p in a fresh
                      process: frames/s, intra ms per frame, bpp, the down
                      ratios chosen, decode_bit_exact by sha256, peak memory
   eval_cli           the RD-eval CLI (tpuvc_torch.cli.test) on 17 frames:
@@ -91,8 +92,8 @@ encoder's reconstructions bit for bit. Each phase runs under its own time limit 
                      its per-frame diagnostics CSV
   train_cli          python -m tpuvc_torch.cli.train in a subprocess per
                      family at full width, batch 8, 256x256 synthetic crops
-                     (FlowGuidedB 8 steps into stage 2 with one BD-rate
-                     validation, its best.msgpack reported, LHBDC 8, DMC 6 with two P-frames, DeformB,
+                     (FlowGuidedB 6 steps into stage 2 with one BD-rate
+                     validation, its best.msgpack reported, LHBDC 6, DMC 6 with two P-frames, DeformB,
                      Flex-Rate and ELIC 4): steps/s after the first, frames
                      trained per second, the last loss, rate and
                      distortion, peak memory, launches; latest.msgpack
@@ -112,6 +113,23 @@ encoder's reconstructions bit for bit. Each phase runs under its own time limit 
                      ELIC) and 1 (seeded): images/s, per-level PSNR and bpp,
                      peak memory; the RD-eval CLI's write_plots exits naming
                      matplotlib where it is missing (draws where it is not)
+  mesh_sequence_cli  encode_v --mesh 2 in two gloo ranks sharing the card
+                     (python -m torch.distributed.run), decode_v in a fresh
+                     2-rank launch: LHBDC 33 and FlowGuidedB 17 frames of
+                     1088x1920, level-batched at cap 2, bf16: the header's
+                     mesh, per-frame sha256 of every rank's decode against
+                     the encoder's, the largest difference from a mesh-1
+                     run at the ranks' batch shapes (<= 1e-4), frames/s,
+                     each rank's peak memory and launches; then
+                     level_batch_shape_dependence (reported): one level
+                     batch coded at batch 2 and as two batches of 1
+  mesh_train_cli     the train CLI for LHBDC(N=128) in two gloo ranks on the
+                     card, global batch 8, 4 steps: the ranks' parameters
+                     bit-identical by sha256, the step-0 averaged gradients
+                     against one process's under reference_check_train's
+                     bars, steps/s
+  nccl_world1        a one-rank NCCL group on cuda:0: make_mesh and the
+                     collectives of CUDA tensors give the expected values
   adaptive_ratios    FlowGuidedB coded at down ratios 2, 4, 8, 16, each
                      stream decoded bit for bit
   bench_torch        bench_torch.py in a subprocess: its last record must
@@ -226,18 +244,21 @@ def emit(payload) -> None:
 
 @contextlib.contextmanager
 def phase(name: str, limit_s: int):
-    """Run a phase under a SIGALRM time limit; the timeout raises."""
+    """Run a phase under a SIGALRM time limit; the timeout raises. Prints
+    the phase's wall seconds when it ends."""
 
     def on_alarm(signum, frame):
         raise TimeoutError(f"phase {name} exceeded {limit_s} s")
 
     old = signal.signal(signal.SIGALRM, on_alarm)
     signal.alarm(limit_s)
+    t0 = time.perf_counter()
     try:
         yield
     finally:
         signal.alarm(0)
         signal.signal(signal.SIGALRM, old)
+        emit({"phase_done": name, "s": time.perf_counter() - t0})
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -910,7 +931,7 @@ def main_path_flexrate(torch) -> dict:
 
 # main_path_dmc's chain: P-frames at down ratio 1.0, then at the fractional
 # ratio, and the warm-up chain before them.
-DMC_CHAIN = ((1.0, 16), (1.5, 4))
+DMC_CHAIN = ((1.0, 8), (1.5, 4))
 DMC_WARM = ((1.0, 2), (1.5, 1))
 
 
@@ -1049,8 +1070,8 @@ SEQUENCE_MODEL = ["--init", "random", "--device", "cuda"]
 
 # Run in a fresh interpreter by sequence_cli and sequence_cli_dmc, from the
 # repository root: the main of the decoding CLI named by the first argument
-# (decode_v or decode_p) on the other arguments, twice (a cold process,
-# then warm), with the zero-initialised heads seeded as in the encoder,
+# (decode_v or decode_p) on the other arguments, once (the process's first
+# card work), with the zero-initialised heads seeded as in the encoder,
 # printing the launches, wall seconds, peak memory and one sha256 per
 # float32 reconstruction as the last line.
 DECODE_IN_A_NEW_PROCESS = """
@@ -1059,21 +1080,15 @@ import torch
 import chip_smoke
 from tpuvc_torch.ops import deform, warp
 cli = importlib.import_module("tpuvc_torch.cli." + sys.argv[1])
-out = {}
-for run in ("cold", "warm"):
-    warp.warp_kernel.launches = deform.deform_kernel.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    with chip_smoke.cli_heads_seeded():
-        rec = cli.main(sys.argv[2:])
-    out[run] = {
-        "main_s": time.perf_counter() - t0,
-        "launches": {"warp": warp.warp_kernel.launches,
-                     "deform": deform.deform_kernel.launches},
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "sha256": {i: hashlib.sha256(t.numpy().tobytes()).hexdigest() for i, t in rec.items()},
-    }
-print(json.dumps(out))
+t0 = time.perf_counter()
+with chip_smoke.cli_heads_seeded():
+    rec = cli.main(sys.argv[2:])
+print(json.dumps({
+    "main_s": time.perf_counter() - t0,
+    "launches": {"warp": warp.warp_kernel.launches, "deform": deform.deform_kernel.launches},
+    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    "sha256": {i: hashlib.sha256(t.numpy().tobytes()).hexdigest() for i, t in rec.items()},
+}))
 """
 
 
@@ -1168,12 +1183,12 @@ def sequence_cli(torch, runs, intra: bool = True) -> list[dict]:
             if proc.returncode != 0:
                 raise AssertionError(f"decode_v ({path}) failed:\n{proc.stderr[-4000:]}")
             dec = json.loads(proc.stdout.strip().splitlines()[-1])
-            bit_exact = all(dec[r]["sha256"] == enc_hashes for r in ("cold", "warm"))
+            bit_exact = dec["sha256"] == enc_hashes
             enc_s = cli_seconds(log.getvalue(), "wrote")
             dec_s = cli_seconds(proc.stdout, "decoded")
             png_s = cli_seconds(proc.stdout, "wrote")
             n_i = sum(1 for t, _, _ in seq.frames if t == "I")
-            launches = {k: enc_launches[k] + dec["warm"]["launches"][k] for k in enc_launches}
+            launches = {k: enc_launches[k] + dec["launches"][k] for k in enc_launches}
             row = {
                 "phase": "sequence_cli", "path": path, "family": family,
                 "encode_argv": argv, "frame": [h, w], "gop": seq.gop,
@@ -1186,15 +1201,14 @@ def sequence_cli(torch, runs, intra: bool = True) -> list[dict]:
                 # decode_s includes writing the PNGs (zlib on the host):
                 # without it, the codec's own decode rate
                 "decode_png_s": png_s, "decode_fps_without_png": n / (dec_s - png_s),
-                "decode_main_s": dec["warm"]["main_s"],
-                "decode_cold_process_main_s": dec["cold"]["main_s"],
+                "decode_main_s": dec["main_s"],
                 "bytes": len(blob), "bpp": 8 * len(blob) / (n * h * w), "psnr_db": psnr,
                 "decode_bit_exact": bit_exact, "decoder": "separate process",
                 "finite": finite, "launches": launches,
                 "launches_encode": enc_launches,
-                "launches_decode": dec["warm"]["launches"],
+                "launches_decode": dec["launches"],
                 "peak_mem_gib_encode": enc_peak,
-                "peak_mem_gib_decode": dec["warm"]["peak_mem_gib"],
+                "peak_mem_gib_decode": dec["peak_mem_gib"],
             }
             if family in SEEDED_FAMILIES:
                 row["flow_offset_spread"] = spread
@@ -1214,7 +1228,7 @@ def sequence_cli(torch, runs, intra: bool = True) -> list[dict]:
                     emit(row)
                     raise
             for k in FAMILY_KERNELS[family]:
-                if enc_launches[k] == 0 or dec["warm"]["launches"][k] == 0:
+                if enc_launches[k] == 0 or dec["launches"][k] == 0:
                     emit(row)
                     raise AssertionError(f"sequence_cli {path} launched no {k} kernel")
 
@@ -1253,10 +1267,10 @@ def sequence_cli(torch, runs, intra: bool = True) -> list[dict]:
     return rows
 
 
-# sequence_cli_dmc's encode_p run: an I-frame and 16 P-frames, each P-frame's
+# sequence_cli_dmc's encode_p run: an I-frame and 8 P-frames, each P-frame's
 # down ratio searched over encode_p's default candidates (1.0, 1.25, 1.5,
 # 2.0, 3.0, 4.0), q=0, float32 (encode_p has no dtype policy).
-SEQUENCE_DMC = ["--synthetic", str(GOP + 1), "--adaptive"]
+SEQUENCE_DMC = ["--synthetic", str(GOP // 2 + 1), "--adaptive"]
 
 
 def release_cache(torch) -> float:
@@ -1325,7 +1339,7 @@ def sequence_cli_dmc(torch) -> dict:
         if proc.returncode != 0:
             raise AssertionError(f"decode_p failed:\n{proc.stderr[-4000:]}")
         dec = json.loads(proc.stdout.strip().splitlines()[-1])
-    bit_exact = all(dec[r]["sha256"] == enc_hashes for r in ("cold", "warm"))
+    bit_exact = dec["sha256"] == enc_hashes
     chosen = re.findall(r"^frame +\d+ P ratio ([0-9.]+)$", log.getvalue(), flags=re.M)
     enc_s = cli_seconds(log.getvalue(), "wrote")
     dec_s = cli_seconds(proc.stdout, "decoded")
@@ -1354,14 +1368,13 @@ def sequence_cli_dmc(torch) -> dict:
         "encode_s": enc_s, "encode_fps": n / enc_s, "encode_main_s": main_s,
         "decode_s": dec_s, "decode_fps": n / dec_s, "decode_png_s": png_s,
         "decode_fps_without_png": n / (dec_s - png_s),
-        "decode_main_s": dec["warm"]["main_s"],
-        "decode_cold_process_main_s": dec["cold"]["main_s"],
+        "decode_main_s": dec["main_s"],
         "bytes": len(blob), "bpp": 8 * len(blob) / (n * h * w), "psnr_db": psnr,
         "down_ratios": dict(sorted(collections.Counter(float(r) for r in chosen).items())),
         "decode_bit_exact": bit_exact, "decoder": "separate process", "finite": finite,
-        "launches_encode": enc_launches, "launches_decode": dec["warm"]["launches"],
-        "launches": {k: enc_launches[k] + dec["warm"]["launches"][k] for k in enc_launches},
-        "peak_mem_gib_encode": enc_peak, "peak_mem_gib_decode": dec["warm"]["peak_mem_gib"],
+        "launches_encode": enc_launches, "launches_decode": dec["launches"],
+        "launches": {k: enc_launches[k] + dec["launches"][k] for k in enc_launches},
+        "peak_mem_gib_encode": enc_peak, "peak_mem_gib_decode": dec["peak_mem_gib"],
         "encoder_process_reserved_gib": reserved_gib,
         "intra_encode_ms_per_frame": 1e3 * t_ienc, "intra_decode_ms_per_frame": 1e3 * t_idec,
         "intra_batch": 1, "intra_bit_exact": intra_exact,
@@ -1372,7 +1385,7 @@ def sequence_cli_dmc(torch) -> dict:
         raise AssertionError("sequence_cli_dmc: the decoder's frames differ or are bad")
     if len(chosen) != n - n_i:
         raise AssertionError(f"sequence_cli_dmc: {len(chosen)} searched ratios for {n - n_i} P")
-    if enc_launches["warp"] == 0 or dec["warm"]["launches"]["warp"] == 0:
+    if enc_launches["warp"] == 0 or dec["launches"]["warp"] == 0:
         raise AssertionError("sequence_cli_dmc launched no warp kernel")
     return row
 
@@ -1770,8 +1783,8 @@ def train_determinism(torch) -> dict:
 # The train CLI per family at full width on synthetic data (no dataset is
 # in the tree): batch 8, 256x256 crops, tpuvc's defaults otherwise.
 TRAIN_RUNS = [
-    ("flowguided_b", ["stage2_start=2", "total_steps=8", "val_every=8"]),
-    ("lhbdc", ["total_steps=8"]),
+    ("flowguided_b", ["stage2_start=2", "total_steps=6", "val_every=6"]),
+    ("lhbdc", ["total_steps=6"]),
     ("dmc", ["n_pframes=2", "total_steps=6"]),
     ("deform_b", ["total_steps=4"]),
     ("flexrate", ["total_steps=4"]),
@@ -2153,6 +2166,424 @@ def image_eval_cli(torch, intra_weights: str, tmp: str) -> dict:
     return row
 
 
+# -- the mesh paths: one process per device, launched by torchrun ----------
+#
+# On a host with one card, two ranks share it over gloo (NCCL refuses two
+# ranks on one GPU): they drive the sharded code through both kernels at
+# each rank's share of the level batches. nccl_world1 checks NCCL's
+# collectives in a one-rank group on the card.
+
+MESH_ARGS = ["--mesh", "2", "--dist_backend", "gloo"]
+# (path, family, encode_v arguments) at batch cap 2, one GOP a window: the
+# level batches are 1 (coded whole on each rank) and 2 (split), so each
+# rank codes every level at batch 1. The mesh-1 reference run takes the
+# same arguments at cap 1: the ranks' batch shapes, one process. (A mesh-1
+# run at cap 2 codes other batch shapes, and on the card a level batch's
+# floats depend on its batch size: level_batch_shape_dependence.)
+MESH_SEQUENCE_RUNS = [
+    ("lhbdc", "lhbdc", [
+        "--family", "lhbdc", "--synthetic", "33", "--gop", "16", "--level_batched",
+        "--max_batch", "2", "--compute_dtype", "bfloat16", "--l", "845"]),
+    ("flowguided_b", "flowguided_b", [
+        "--family", "flowguided_b", "--synthetic", "17", "--gop", "16", "--level_batched",
+        "--max_batch", "2", "--compute_dtype", "bfloat16", "--s", "1.0"]),
+]
+MESH_RECON_BAR = 1e-4  # mesh 2 against mesh 1 at the ranks' batch shapes
+
+
+def level_batch_shape_dependence(torch) -> list[dict]:
+    """How far one level batch's reconstructions on the card move with its
+    batch size alone: LHBDC(N=128) and FlowGuidedB (full width, heads
+    seeded) code the same two 1088x1920 B-frames as one batch of 2 and as
+    two batches of 1, in float32, in this one process.
+    Reported, not a pass condition: cuDNN's algorithm follows the batch
+    size, and a latent that then rounds the other way moves its region of
+    the frame (the reason a stream records the mesh it was coded over)."""
+    from tpuvc_torch.coder import parallel
+    from tpuvc_torch.data.uvg import SyntheticSequence, device_frame
+    from tpuvc_torch.models.flowguided_b import FlowGuidedBCoder
+    from tpuvc_torch.models.lhbdc import LHBDC, LHBDCCoder
+    from tpuvc_torch.ops.precision import policy_from_name
+
+    src = SyntheticSequence(n_frames=GOP + 1, h=FRAME[0], w=FRAME[1])
+    x = {i: device_frame(src.u8(i), "cuda") for i in (0, 4, 8, 12, 16)}
+    xb, xa = torch.cat([x[0], x[8]]), torch.cat([x[8], x[16]])
+    xc = torch.cat([x[4], x[12]])
+    lhbdc = LHBDCCoder(LHBDC(N=128, generator=torch.Generator().manual_seed(0)))
+    v4 = FlowGuidedBCoder(v4_model(torch))
+    coders = {
+        "lhbdc": lambda b, c, a: lhbdc.encode_level_batch(b, c, a, rate_id=845),
+        "flowguided_b": lambda b, c, a: v4.encode_level_batch(b, a, c, s=1.0, scale1=0.5,
+                                                             scale2=-0.5),
+    }
+    rows = []
+    try:
+        with policy_from_name("float32"):
+            for family, code in coders.items():
+                bits2, x2 = code(xb, xc, xa)
+                ones = [code(xb[i:i + 1], xc[i:i + 1], xa[i:i + 1]) for i in range(2)]
+                d = (torch.clamp(x2, 0, 1) - torch.clamp(torch.cat([o[1] for o in ones]),
+                                                         0, 1)).abs()
+                rows.append({
+                    "phase": "level_batch_shape_dependence", "family": family,
+                    "compute_dtype": "float32", "frame": list(FRAME),
+                    "batch_2_vs_two_batches_of_1_max_abs": float(d.max()),
+                    "share_above_1e-4": float((d > 1e-4).float().mean()),
+                    "streams_equal": [a.serialize() == o[0][0].serialize()
+                                      for a, o in zip(bits2, ones)]})
+                emit(rows[-1])
+    finally:
+        parallel.shutdown()
+    return rows
+
+
+# Run by torchrun in each rank, from the repository root: for each job of
+# the JSON list in the third argument ({"tag", "ref", "argv"}), the main of
+# the sequence CLI named by the first argument on the job's arguments, in
+# the group this script joins first (gloo, so that two ranks can share a
+# card), with the zero-initialised heads seeded and a LaunchLog in front of
+# each kernel library; saves this rank's launches, seconds, peak memory,
+# per-frame sha256, printed lines and launched shapes as
+# OUT/TAG_CLI_RANK.json. Where a job names a "ref" file, rank 0 also writes
+# the largest difference of its frames from the frames saved there.
+MESH_CLI_IN_RANKS = """
+import contextlib, hashlib, importlib, io, json, os, sys, time
+import torch
+import torch.distributed as dist
+import chip_smoke
+from tpuvc_torch.parallel.mesh import make_mesh
+name, out_dir, jobs = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+cli = importlib.import_module("tpuvc_torch.cli." + name)
+device = jobs[0]["argv"][jobs[0]["argv"].index("--device") + 1]
+mesh = make_mesh(backend="gloo", device=device)
+cuda = mesh.device.type == "cuda"
+logged = chip_smoke.log_launches() if cuda else {"warp": set(), "deform": set()}
+for job in jobs:
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for k in logged:
+        logged[k].clear()
+    spread, log = {}, io.StringIO()
+    with chip_smoke.cli_heads_seeded(spread):
+        chip_smoke.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rec = cli.main(job["argv"])
+        main_s = time.perf_counter() - t0
+    out = {"rank": mesh.rank, "main_s": main_s, "launches": chip_smoke.read_launches(),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+           "sha256": {str(i): hashlib.sha256(t.numpy().tobytes()).hexdigest()
+                      for i, t in rec.items()},
+           "log": log.getvalue(), "spread": spread,
+           "shapes": {k: sorted(v) for k, v in logged.items()}}
+    if job["ref"] and mesh.rank == 0:
+        ref = torch.load(job["ref"])
+        out["max_abs_diff_vs_mesh1"] = max(float((rec[i] - ref[i]).abs().max()) for i in ref)
+    with open(os.path.join(out_dir, f"{job['tag']}_{name}_{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+    del rec
+dist.destroy_process_group()
+"""
+
+
+def launch_ranks(n: int, script: str, args: list, timeout: int) -> str:
+    """``python -m torch.distributed.run --standalone --nproc_per_node n``
+    running ``python -c script args`` (after ``--``, so that torchrun's
+    parser takes none of them); returns its output. A failing rank
+    fails the launch; on a timeout or any other error the launcher gets
+    SIGTERM (it stops its ranks) and then SIGKILL."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         str(n), "--no-python", "--", sys.executable, "-c", script, *args],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except BaseException:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        finally:
+            proc.kill()
+            proc.wait()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"a {n}-rank launch exited {proc.returncode}:\n{out[-6000:]}")
+    return out
+
+
+def _rank_rows(out_dir: str, name: str, n: int) -> list[dict]:
+    rows = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"{name}_{r}.json")) as f:
+            rows.append(json.load(f))
+    return rows
+
+
+def mesh_sequence_cli(torch, logged: dict, tmp: str, device: str = "cuda") -> list[dict]:
+    """For each of MESH_SEQUENCE_RUNS: encode_v in this process at mesh 1
+    and batch cap 1 (the reference frames, at the ranks' batch shapes);
+    then ``encode_v --mesh 2`` for every run in one launch of two gloo
+    ranks sharing the card, and ``decode_v`` on each file in a fresh 2-rank
+    launch (MESH_CLI_IN_RANKS). The header must read mesh 2, every rank's
+    decoded frames equal the encoder's by sha256, the frames lie within
+    MESH_RECON_BAR of the mesh-1 run's, and every rank launch each kernel
+    its family uses; each rank's launched shapes join ``logged``."""
+    import io
+
+    from tpuvc_torch.cli import encode_v
+    from tpuvc_torch.coder import parallel
+    from tpuvc_torch.coder.container import VSequenceBitstream
+
+    size = ["--width", str(FRAME[1]), "--height", str(FRAME[0])]
+    model = ["--init", "random", "--device", device]
+    out_dir = os.path.join(tmp, "mesh_ranks")
+    os.makedirs(out_dir)
+    enc_jobs, dec_jobs = [], []
+    for path, family, argv in MESH_SEQUENCE_RUNS:
+        ref_path = os.path.join(tmp, f"{path}_mesh1.pt")
+        cap = argv.index("--max_batch")
+        ref_argv = argv[:cap] + ["--max_batch", "1"] + argv[cap + 2:]
+        try:
+            with cli_heads_seeded(), contextlib.redirect_stdout(io.StringIO()):
+                ref = encode_v.main(ref_argv + size + model + ["--bin", ref_path + ".tpvb"])
+        finally:
+            parallel.shutdown()
+        torch.save(ref, ref_path)
+        del ref
+        bin_path = os.path.join(tmp, f"{path}_mesh2.tpvb")
+        enc_jobs.append({"tag": path, "ref": ref_path,
+                         "argv": argv + size + model + MESH_ARGS + ["--bin", bin_path]})
+        dec_jobs.append({"tag": path, "ref": None, "argv": [
+            "--bin", bin_path, "--out_dir", os.path.join(tmp, f"{path}_png"), *model,
+            "--dist_backend", "gloo"]})
+    if device == "cuda":
+        release_cache(torch)
+    launch_ranks(2, MESH_CLI_IN_RANKS, ["encode_v", out_dir, json.dumps(enc_jobs)], 360)
+    launch_ranks(2, MESH_CLI_IN_RANKS, ["decode_v", out_dir, json.dumps(dec_jobs)], 360)
+    rows = []
+    for (path, family, argv), job in zip(MESH_SEQUENCE_RUNS, enc_jobs):
+        enc = _rank_rows(out_dir, f"{path}_encode_v", 2)
+        dec = _rank_rows(out_dir, f"{path}_decode_v", 2)
+        with open(job["argv"][-1], "rb") as f:
+            blob = f.read()
+        seq = VSequenceBitstream.deserialize(blob)
+        n, (h, w) = seq.n_frames, FRAME
+        enc_s, dec_s = cli_seconds(enc[0]["log"], "wrote"), cli_seconds(dec[0]["log"], "decoded")
+        bit_exact = all(r["sha256"] == enc[0]["sha256"] for r in enc + dec)
+        for r in enc + dec:
+            for k in ("warp", "deform"):
+                logged[k].update(tuple(v) for v in r["shapes"][k])
+        row = {
+            "phase": "mesh_sequence_cli", "path": path, "family": family,
+            "encode_argv": argv + MESH_ARGS, "frame": [h, w], "frames": n,
+            "mesh": seq.mesh, "ranks": 2, "dist_backend": "gloo", "ranks_share_one_card": True,
+            "max_batch": seq.max_batch, "window_gops": seq.window_gops,
+            "compute_dtype": "bfloat16" if seq.dtype == 1 else "float32",
+            "encode_s": enc_s, "encode_fps": n / enc_s, "decode_s": dec_s,
+            "decode_fps": n / dec_s, "bytes": len(blob), "bpp": 8 * len(blob) / (n * h * w),
+            "decode_bit_exact": bit_exact, "decoder": "separate 2-rank launch",
+            "max_abs_diff_vs_mesh1": enc[0]["max_abs_diff_vs_mesh1"],
+            "mesh1_reference": "encode_v at --max_batch 1 (each rank's batch shapes)",
+            "peak_mem_gib_by_rank": {"encode": [r["peak_mem_gib"] for r in enc],
+                                     "decode": [r["peak_mem_gib"] for r in dec]},
+            "launches_by_rank": {"encode": [r["launches"] for r in enc],
+                                 "decode": [r["launches"] for r in dec]},
+        }
+        if family in SEEDED_FAMILIES:
+            row["flow_offset_spread_rank0"] = enc[0]["spread"]
+        emit(row)
+        rows.append(row)
+        if seq.mesh != 2 or seq.mode != 1:
+            raise AssertionError(f"mesh_sequence_cli {path}: header mesh {seq.mesh}, mode {seq.mode}")
+        if not bit_exact:
+            raise AssertionError(f"mesh_sequence_cli {path}: a rank's frames differ")
+        if not row["max_abs_diff_vs_mesh1"] <= MESH_RECON_BAR:
+            raise AssertionError(f"mesh_sequence_cli {path}: mesh 2 differs from mesh 1 by "
+                                 f"{row['max_abs_diff_vs_mesh1']}")
+        for r in enc + dec:
+            if family in SEEDED_FAMILIES:
+                check_spread(r["spread"], f"mesh_sequence_cli {path} rank {r['rank']}", family)
+            for k in FAMILY_KERNELS[family]:
+                if device == "cuda" and r["launches"][k] == 0:
+                    raise AssertionError(f"mesh_sequence_cli {path}: rank {r['rank']} "
+                                         f"launched no {k} kernel")
+    return rows
+
+
+MESH_TRAIN_STEPS = 4
+
+# Run by torchrun in each rank: joins a gloo group on the card, holds one
+# data-parallel LHBDC(N=128) step's averaged gradients against the same
+# step in one process (mesh_step0_gradients), then runs the train CLI on the
+# arguments after the first, with the launch counts set to 0 just before;
+# saves this rank's results as OUT/train_RANK.json.
+MESH_TRAIN_IN_RANKS = """
+import json, os, sys, time
+import torch
+import torch.distributed as dist
+import chip_smoke
+from tpuvc_torch.cli import train
+from tpuvc_torch.parallel.mesh import make_mesh
+out_dir, argv = sys.argv[1], sys.argv[2:]
+device = argv[argv.index("--device") + 1]
+mesh = make_mesh(backend="gloo", device=device)
+cuda = mesh.device.type == "cuda"
+logged = chip_smoke.log_launches() if cuda else {"warp": set(), "deform": set()}
+kv = dict(a.split("=", 1) for a in argv if "=" in a and not a.startswith("--"))
+out = {"rank": mesh.rank, "step0": chip_smoke.mesh_step0_gradients(
+    torch, mesh, int(kv["batch_size"]), int(kv["crop"]), int(kv.get("model.N", 128)))}
+if cuda:
+    torch.cuda.reset_peak_memory_stats()
+chip_smoke.reset_launches()
+out["summary"] = train.main(argv)
+out["launches"] = chip_smoke.read_launches()
+out["shapes"] = {k: sorted(v) for k, v in logged.items()}
+with open(os.path.join(out_dir, f"train_{mesh.rank}.json"), "w") as f:
+    json.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def mesh_step0_gradients(torch, mesh, batch_size: int, crop: int, n: int) -> dict:
+    """One data-parallel LHBDC(N=n) 'noise' step over ``mesh`` on the train
+    CLI's first global batch (``batch_size`` windows of ``crop`` px), each
+    rank on its rows: the gradients the optimizer gets; on rank 0, each
+    tensor's error against the same step in one process on the whole
+    batch, relative to its max |g|."""
+    from tpuvc_torch.data.vimeo import SyntheticSeptuplets, make_batch_iterator
+    from tpuvc_torch.models.lhbdc import LHBDC
+    from tpuvc_torch.ops.precision import set_deterministic
+    from tpuvc_torch.parallel.mesh import shard_batch
+    from tpuvc_torch.train.trainer import data_parallel, make_lhbdc_step, make_optimizer
+
+    if mesh.device.type == "cuda":
+        set_deterministic()
+    batch = next(make_batch_iterator(SyntheticSeptuplets(n=256, size=crop + 32), batch_size,
+                                     crop, seed=0, raw_uint8=True))
+    batch = torch.from_numpy(batch)
+
+    def step_grads(rows, ranks):
+        model = LHBDC(N=n, generator=torch.Generator().manual_seed(0)).to(mesh.device)
+        tx, got = make_optimizer(), {}
+        update = tx.update
+
+        def keep(grads, state, params=None, value=None):
+            got.update({k: g.detach().cpu() for k, g in grads.items()}, loss=float(value))
+            return update(grads, state, params, value=value)
+
+        tx.update = keep
+        params = dict(model.named_parameters())
+        with ranks:
+            make_lhbdc_step(model, tx, alpha=1626.0)(
+                params, tx.init(params), rows.to(mesh.device).float() / 255.0, (1, 0))
+        return got
+
+    got = step_grads(shard_batch(mesh, batch), data_parallel(mesh, batch.shape[0]))
+    row = {"model": f"LHBDC(N={n}) seeded", "batch": batch_size, "crop": crop, "mode": "noise",
+           "rows_per_rank": batch_size // mesh.size, "loss_mesh": got.pop("loss")}
+    if mesh.rank == 0:
+        ref = step_grads(batch, contextlib.nullcontext())
+        row["loss_one_process"] = ref.pop("loss")
+        errs = sorted(_grad_err(torch, got[k], ref[k]) for k in ref)
+        row.update(tensors=len(errs), grad_rel_err_max=errs[-1],
+                   grad_rel_err_median=errs[len(errs) // 2])
+    return row
+
+
+def mesh_train_cli(torch, logged: dict, tmp: str, device: str = "cuda",
+                   extra: tuple = ()) -> dict:
+    """The train CLI for LHBDC(N=128) in two gloo ranks sharing the card
+    (MESH_TRAIN_IN_RANKS): global batch TRAIN_B of TRAIN_CROP crops,
+    MESH_TRAIN_STEPS steps, float32. The step-0 averaged gradients against
+    a one-process step on the same batch under reference_check_train's bars
+    (median <= 1e-4, worst <= 5e-2 of each tensor's max), and the ranks'
+    parameters bit-identical after the last step (the CLI compares every
+    tensor's sha256 across the ranks and fails otherwise)."""
+    out_dir = os.path.join(tmp, "mesh_train")
+    os.makedirs(out_dir)
+    args = ["--device", device, "--dist_backend", "gloo", "model.family=lhbdc",
+            f"batch_size={TRAIN_B}", f"crop={TRAIN_CROP}", f"total_steps={MESH_TRAIN_STEPS}",
+            f"checkpoint_dir={os.path.join(tmp, 'mesh_train_ck')}", *extra]
+    if device == "cuda":
+        release_cache(torch)
+    t0 = time.perf_counter()
+    launch_ranks(2, MESH_TRAIN_IN_RANKS, [out_dir, *args], 300)
+    wall_s = time.perf_counter() - t0
+    ranks = _rank_rows(out_dir, "train", 2)
+    for r in ranks:
+        for k in ("warp", "deform"):
+            logged[k].update(tuple(v) for v in r["shapes"][k])
+    s, step0 = ranks[0]["summary"], ranks[0]["step0"]
+    digests = s["rank_params_sha256"]
+    row = {"phase": "mesh_train_cli", "path": "mesh_train_lhbdc", "family": "lhbdc",
+           "args": args, "ranks": 2, "dist_backend": "gloo", "ranks_share_one_card": True,
+           "wall_s": wall_s, "steps": s["steps"], "steps_per_s_after_first":
+           s["steps_per_s_after_first"], "frames_per_s_after_first":
+           s["frames_per_s_after_first"], "first_step_s": s["first_step_s"],
+           "metrics": s["metrics"], "skipped_nonfinite": s["skipped_nonfinite"],
+           "params_bit_identical": len(digests) == 2 and len(set(digests)) == 1,
+           "rank_params_sha256": digests, "step0": step0,
+           "peak_mem_gib_rank0": s["peak_mem_gib"],
+           "launches_by_rank": [r["launches"] for r in ranks]}
+    emit(row)
+    if not row["params_bit_identical"]:
+        raise AssertionError(f"mesh_train_cli: the ranks' parameters differ: {digests}")
+    if not (step0["grad_rel_err_median"] <= 1e-4 and step0["grad_rel_err_max"] <= 5e-2):
+        raise AssertionError(f"mesh_train_cli: step-0 gradients over the mesh disagree: {step0}")
+    if device == "cuda" and not all(r["launches"]["warp"] > 0 for r in ranks):
+        raise AssertionError("mesh_train_cli: a rank launched no warp kernel")
+    return row
+
+
+# Run by torchrun in one rank: a one-rank NCCL group on the card; the
+# port's collectives and torch.distributed's own on CUDA tensors.
+NCCL_WORLD1_IN_RANKS = """
+import json, sys
+import torch
+import torch.distributed as dist
+from tpuvc_torch.parallel import mesh as M
+mesh = M.make_mesh(backend="nccl")
+x = torch.arange(12.0, device=mesh.device).reshape(6, 2)
+y = x.clone()
+dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.group)
+z = torch.zeros_like(x) if mesh.rank else x.clone()
+dist.broadcast(z, src=0, group=mesh.group)
+parts = [torch.empty_like(x)]
+dist.all_gather(parts, x, group=mesh.group)
+bf = x.to(torch.bfloat16) / 3
+out = {"backend": mesh.backend, "device": str(mesh.device), "size": mesh.size,
+       "all_reduce": torch.equal(y, x), "broadcast": torch.equal(z, x),
+       "all_gather": torch.equal(parts[0], x),
+       "all_reduce_mean": torch.equal(M.all_reduce_mean(mesh, x), x),
+       "broadcast_": torch.equal(M.broadcast_(mesh, x.clone()), x),
+       "all_gather_rows_bf16": torch.equal(M.all_gather_rows(mesh, bf), bf),
+       "all_gather_objects": M.all_gather_objects(mesh, {"rank": mesh.rank}) == [{"rank": 0}],
+       "shard_batch": torch.equal(M.shard_batch(mesh, x), x),
+       "on_device": M.all_gather_rows(mesh, x).device == mesh.device}
+with open(sys.argv[1], "w") as f:
+    json.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def nccl_world1(tmp: str) -> dict:
+    """NCCL_WORLD1_IN_RANKS in a one-rank torchrun launch: every check must
+    hold, on cuda:0, over nccl."""
+    path = os.path.join(tmp, "nccl_world1.json")
+    launch_ranks(1, NCCL_WORLD1_IN_RANKS, [path], 180)
+    with open(path) as f:
+        got = json.load(f)
+    row = {"phase": "nccl_world1", **got}
+    emit(row)
+    checks = {k: v for k, v in got.items() if isinstance(v, bool)}
+    if not (all(checks.values()) and got["backend"] == "nccl" and got["device"] == "cuda:0"):
+        raise AssertionError(f"nccl_world1: {row}")
+    return row
+
+
 def warp_and_blend_check(torch) -> dict:
     """``ops.warp.warp_and_blend`` on CUDA tensors at LHBDC's
     motion-compensation shape (4,1088,1920,3), lhbdc mode: two warp kernel
@@ -2310,6 +2741,15 @@ def main() -> int:
     with phase("image_eval_cli", 180):
         image_eval_cli(torch, os.path.join(imported["weights"], "elic"), imported_tmp.name)
     imported_tmp.cleanup()
+    mesh_tmp = tempfile.TemporaryDirectory()
+    with phase("mesh_sequence_cli", 420):
+        mesh_rows = mesh_sequence_cli(torch, logged, mesh_tmp.name)
+        level_batch_shape_dependence(torch)
+    with phase("mesh_train_cli", 300):
+        mesh_train = mesh_train_cli(torch, logged, mesh_tmp.name)
+    with phase("nccl_world1", 180):
+        nccl_world1(mesh_tmp.name)
+    mesh_tmp.cleanup()
     with phase("adaptive_ratios", 180):
         adaptive = adaptive_ratios(torch)
     with phase("bench_torch", 480):
@@ -2337,6 +2777,13 @@ def main() -> int:
         paths.update({r["path"]: r["launches"][kernel] for r in train_rows})
         paths["trained_checkpoint_encode_b"] = trained["launches"][kernel]
         paths.update({r["path"]: r["launches"][kernel] for r in imported["codes"].values()})
+        # each rank of the mesh paths counts its own launches
+        for r in mesh_rows:
+            for verb, by_rank in r["launches_by_rank"].items():
+                paths.update({f"mesh_sequence_cli_{r['path']}_{verb}_rank{k}": v[kernel]
+                              for k, v in enumerate(by_rank)})
+        paths.update({f"mesh_train_cli_rank{k}": v[kernel]
+                      for k, v in enumerate(mesh_train["launches_by_rank"])})
         return paths
 
     warp_head = warp_rows[0]  # the largest shape: SPyNet's finest level

@@ -820,3 +820,54 @@ def test_deform_backward_at_the_training_shapes(cuda, x_shape, G, C_out):
     (ok, gk), (op, gp) = res
     assert float((ok - op).abs().max()) <= 2e-5
     assert max(_grad_rel_err(a, b) for a, b in zip(gk, gp)) <= 1e-5
+
+
+def test_nccl_world1_collectives(cuda, tmp_path):
+    """A one-rank NCCL group on the card (file:// init, no port): make_mesh
+    joins it on cuda:0, and the port's collectives and torch.distributed's
+    all_reduce, broadcast and all_gather of CUDA tensors give their inputs
+    back."""
+    import torch.distributed as dist
+
+    from tpuvc_torch.parallel import mesh as M
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init", rank=0, world_size=1)
+    try:
+        mesh = M.make_mesh(1, backend="nccl")
+        assert (mesh.size, mesh.rank, mesh.backend, mesh.device) == (1, 0, "nccl",
+                                                                    torch.device("cuda", 0))
+        x = torch.arange(12.0, device=mesh.device).reshape(6, 2)
+        y = x.clone()
+        dist.all_reduce(y, group=mesh.group)
+        z = x.clone()
+        dist.broadcast(z, src=0, group=mesh.group)
+        parts = [torch.empty_like(x)]
+        dist.all_gather(parts, x, group=mesh.group)
+        assert torch.equal(y, x) and torch.equal(z, x) and torch.equal(parts[0], x)
+        bf = x.to(torch.bfloat16) / 3
+        assert torch.equal(M.all_gather_rows(mesh, bf), bf)
+        assert torch.equal(M.all_reduce_mean(mesh, x), x)
+        assert torch.equal(M.broadcast_(mesh, x.clone()), x)
+        assert M.all_gather_objects(mesh, {"rank": 0}) == [{"rank": 0}]
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh2_gloo_level_batch_round_trip_on_card(cuda, tmp_path):
+    """Two gloo ranks share the card (tests/torch_mesh_worker.py's
+    coding_card case): LHBDC and FlowGuidedB level batches of 128x128
+    frames at B=2 (split) and B=3 (whole on each rank) decode bit for bit
+    over the mesh, the ranks agree, and each rank launches the warp (and,
+    for FlowGuidedB, the deform) kernel."""
+    from torch_mesh_worker import run_ranks
+
+    ranks = run_ranks("coding_card", tmp_path)
+    for (fam, b), r0 in ranks[0].items():
+        assert r0["recon"].shape == (b, 128, 128, 3)
+        for out in ranks:
+            got = out[(fam, b)]
+            assert torch.equal(got["dec"], got["recon"]) and torch.equal(got["recon"], r0["recon"])
+            assert got["blobs"] == r0["blobs"]
+            assert got["launches"]["warp"] > 0
+            assert fam == "lhbdc" or got["launches"]["deform"] > 0
+

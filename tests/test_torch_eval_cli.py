@@ -247,12 +247,12 @@ def test_run_levels_dmc_matches_tpuvc(setup, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("override, match", [
     ("write_plots=True", "matplotlib"),
-    ("device_count=2", "A16"),
 ])
 def test_unported_options_exit_with_their_roadmap_item(tmp_path, monkeypatch, override, match):
-    """Options this machine cannot run exit before the eval: device_count > 1
-    names its ROADMAP.md item, write_plots without matplotlib (hidden here)
-    names the package."""
+    """An option this machine cannot run exits before the eval:
+    write_plots without matplotlib (hidden here) names the package.
+    (device_count=2 runs on one device, as in tpuvc:
+    test_torch_mesh_cli.py.)"""
     from tpuvc_torch.cli import test as ttest
 
     monkeypatch.setitem(sys.modules, "matplotlib", None)

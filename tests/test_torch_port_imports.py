@@ -40,6 +40,11 @@ def test_port_modules_import_without_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_the_scans_cover_the_mesh_package():
+    """tpuvc_torch.parallel is the port's own (tpuvc.parallel imports JAX)."""
+    assert {"tpuvc_torch.parallel", "tpuvc_torch.parallel.mesh"} <= set(PORT_MODULES)
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -51,7 +56,8 @@ def _imports(path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"],
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+                                  ROOT / "tests" / "torch_mesh_worker.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_static_scan_finds_no_forbidden_import(path):

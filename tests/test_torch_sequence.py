@@ -354,7 +354,7 @@ def test_encode_p_loads_tpuvc_checkpoints(tmp_path):
 
 @pytest.mark.parametrize("argv, match", [
     (["--family", "flowguided_b", "--adaptive", "--level_batched"], "sequential mode"),
-    (["--level_batched", "--mesh", "2"], "A16"),
+    (["--level_batched", "--mesh", "2"], "WORLD_SIZE"),
 ])
 def test_unported_options_exit_with_their_roadmap_item(tmp_path, argv, match):
     from tpuvc_torch.cli import encode_v

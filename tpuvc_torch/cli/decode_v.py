@@ -13,6 +13,13 @@ the encoder's bit for bit. Streams with header mode=1 were coded with
 level-batched forwards and decode through the same batch shapes, under the
 compute dtype the header records. The model flags must match the
 encoder's.
+
+A stream coded over a mesh (``encode_v --mesh N``, header mesh=N) decodes
+under a launch of N processes, each decoding its rows of every level batch
+as the encoder's rank did; rank 0 writes the PNGs and prints:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m tpuvc_torch.cli.decode_v --bin out.tpvb --out_dir /tmp/dec
 """
 
 from __future__ import annotations
@@ -44,6 +51,9 @@ def build_parser():
     p.add_argument("--intra_groups", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device to decode on (default cuda)")
+    p.add_argument("--dist_backend", default=None,
+                   help="torch.distributed backend for a stream coded over a "
+                        "mesh (default nccl on cuda, gloo on the CPU)")
     return p
 
 
@@ -169,34 +179,50 @@ def main(argv=None):
     float32 CPU tensor}, equal to what encode_v returned."""
     args = build_parser().parse_args(argv)
 
-    import numpy as np
-    import torch
-
     from tpuvc_torch import resolve_device
-    from tpuvc_torch.cli.encode_b import load_model, make_coder
-    from tpuvc_torch.cli.encode_v import build_intra, finish, load_frames, to_host
-    from tpuvc_torch.coder.container import (
-        BFrameBitstream,
-        IFrameBitstream,
-        VFrameBitstream,
-        VSequenceBitstream,
-    )
-    from tpuvc_torch.coder.parallel import parallel_map
-    from tpuvc_torch.data.frames import float_to_uint8, save_png
-    from tpuvc_torch.eval.metrics import psnr_uint8_np
-    from tpuvc_torch.gop.dpb import DecodedPictureBuffer
-    from tpuvc_torch.ops.precision import policy_from_name, set_deterministic
+    from tpuvc_torch.cli.encode_v import join_mesh
+    from tpuvc_torch.coder.container import VSequenceBitstream
+    from tpuvc_torch.ops.precision import set_deterministic
 
     device = resolve_device(args.device)
     set_deterministic()
     with open(args.bin, "rb") as f:
         seq = VSequenceBitstream.deserialize(f.read())
     args.family = seq.family
-    if seq.mesh > 1:
-        raise SystemExit(f"the stream was coded over a {seq.mesh}-device mesh, which "
-                         "tpuvc_torch does not replay yet: ROADMAP.md queue A, A16")
+    # The encoder sharded its level batches over seq.mesh processes: replay
+    # the same split (the coders' set_shard), or the re-derived entropy
+    # parameters would come from other batch shapes.
+    if seq.mesh > 1 and seq.mode != 1:
+        raise SystemExit(f"a mesh={seq.mesh} stream must be level-batched (mode 1), "
+                         f"this one has mode {seq.mode}")
+    mesh = join_mesh(seq.mesh, args.dist_backend, args.device)
+    try:
+        return _decode(args, seq, device if mesh is None else mesh.device, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _decode(args, seq, device, mesh) -> dict:
+    """decode_v's body on ``device``, over ``mesh`` (None: one device)."""
+    import numpy as np
+    import torch
+
+    from tpuvc_torch.cli.encode_b import load_model, make_coder
+    from tpuvc_torch.cli.encode_v import build_intra, finish, load_frames, to_host
+    from tpuvc_torch.coder.container import BFrameBitstream, IFrameBitstream, VFrameBitstream
+    from tpuvc_torch.coder.parallel import parallel_map
+    from tpuvc_torch.data.frames import float_to_uint8, save_png
+    from tpuvc_torch.eval.metrics import psnr_uint8_np
+    from tpuvc_torch.gop.dpb import DecodedPictureBuffer
+    from tpuvc_torch.ops.precision import policy_from_name
+    from tpuvc_torch.parallel.mesh import level_batch_sharder
+
+    rank0 = mesh is None or mesh.rank == 0
     h, w, n = seq.height, seq.width, seq.n_frames
     coder = make_coder(args, load_model(args), device)
+    if mesh is not None:
+        coder.set_shard(level_batch_sharder(mesh))
     intra_coder = build_intra(args, device)
     frame_cls = BFrameBitstream if seq.family in ("lhbdc", "flexrate") else VFrameBitstream
 
@@ -229,6 +255,8 @@ def main(argv=None):
                 decoded[idx] = to_host(dec[0])
                 print(f"frame {idx:4d} {ftyp} {len(blob)} bytes")
     out = finish(decoded, device, h, w)
+    if not rank0:  # every rank holds the frames; rank 0 writes them
+        return out
 
     os.makedirs(args.out_dir, exist_ok=True)
 

@@ -15,6 +15,13 @@ walk, so the file is self-contained given the weights. The encoder
 reconstructs every frame as the decoder will (the same decode path, the
 same DPB), so the two cannot drift.
 
+``--mesh N`` shards the level batches over N processes, one device each,
+launched by torchrun; rank 0 writes the file, whose header records N:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m tpuvc_torch.cli.encode_v --synthetic 33 --level_batched \
+        --max_batch 4 --mesh 2 --init random --bin out.tpvb
+
 Weights: ``--weights`` is the B family's checkpoint directory (as in
 encode_b), ``--weights_intra`` the ELIC .msgpack; ``--init random`` draws
 seeded weights instead. Runs on ``--device`` (default ``cuda``; no quiet
@@ -63,8 +70,14 @@ def build_parser():
     p.add_argument("--max_batch", type=int, default=8,
                    help="per-forward batch cap for --level_batched")
     p.add_argument("--mesh", type=int, default=1,
-                   help="shard --level_batched stages over N devices "
-                        "(not ported yet: 1 only)")
+                   help="shard --level_batched stages over N devices, one "
+                        "process each (launch N with python -m "
+                        "torch.distributed.run --nproc_per_node N); the "
+                        "header records N and decode_v replays it")
+    p.add_argument("--dist_backend", default=None,
+                   help="torch.distributed backend for --mesh > 1 (default "
+                        "nccl on cuda, gloo on the CPU; ranks sharing a card "
+                        "need gloo)")
     p.add_argument("--window_gops", type=int, default=1,
                    help="GOPs coded together per window in --level_batched "
                         "mode: the same hierarchy level across the window's "
@@ -87,11 +100,29 @@ def build_parser():
     return p
 
 
-def check_unported(args) -> None:
-    """Exit on the options whose tpuvc code paths are not ported yet."""
-    if args.mesh > 1:
-        raise SystemExit("--mesh > 1 is not ported to tpuvc_torch yet: "
-                         "ROADMAP.md queue A, A16 (parallel/mesh.py)")
+def join_mesh(mesh_size: int, backend, device_name: str):
+    """The mesh a sequence CLI codes over: None for one device (no process
+    group), else this launch's ``mesh_size`` processes. Exits, naming both,
+    unless the launch's WORLD_SIZE is ``mesh_size``."""
+    from tpuvc_torch.parallel.mesh import make_mesh, world_size
+
+    if world_size() != mesh_size:
+        raise SystemExit(
+            f"the mesh has {mesh_size} device(s) but this launch has WORLD_SIZE="
+            f"{world_size()}: run one process per device, python -m "
+            f"torch.distributed.run --nproc_per_node {mesh_size}")
+    if mesh_size == 1:
+        return None
+    return make_mesh(mesh_size, backend=backend, device=device_name)
+
+
+def check_mesh(args) -> None:
+    """tpuvc's --mesh refusals: level-batched mode only, and the header's
+    uint8 range."""
+    if args.mesh != 1 and not args.level_batched:
+        raise SystemExit("--mesh requires --level_batched")
+    if not 1 <= args.mesh <= 255:
+        raise SystemExit(f"--mesh {args.mesh} out of range (header field is uint8, 1..255)")
 
 
 def build_intra(args, device):
@@ -175,17 +206,21 @@ def code_b_frame(coder, family, args, ref1, ref2, xcur, idx, o1, o2):
     )
 
 
-def _encode_level_batched(args, frames, coder, intra_coder, device) -> dict:
+def _encode_level_batched(args, frames, coder, intra_coder, device, mesh=None) -> dict:
     """Level-batched encoding: frames of one hierarchy level (across the
     window's GOPs) share every device forward. The decoder replays the same
     batch shapes (VSequenceBitstream mode=1), which keeps the entropy
-    decode in sync. Returns the reconstructions by display index."""
+    decode in sync. Over a ``mesh`` each rank codes its rows of every level
+    batch (the coder's set_shard), every rank ends each level with all the
+    reconstructions, and rank 0 alone writes the file and prints. Returns
+    the reconstructions by display index."""
     import torch
 
     from tpuvc_torch.coder.container import IFrameBitstream, VSequenceBitstream
     from tpuvc_torch.data.uvg import device_frame
     from tpuvc_torch.gop.order import gop_coding_table
     from tpuvc_torch.ops.precision import policy_from_name
+    from tpuvc_torch.parallel.mesh import level_batch_sharder
 
     h, w = frames.size
     n = len(frames)
@@ -196,6 +231,9 @@ def _encode_level_batched(args, frames, coder, intra_coder, device) -> dict:
             "drop the tail or use the sequential mode"
         )
     table = gop_coding_table(gop)
+    if mesh is not None:
+        coder.set_shard(level_batch_sharder(mesh))
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     records: list = []
     anchors: dict = {}
     recons: dict = {}
@@ -268,7 +306,7 @@ def _encode_level_batched(args, frames, coder, intra_coder, device) -> dict:
         for chunk, resolve in pending_prev:
             for (g0, f), b in zip(chunk, resolve()):
                 records.append(("B", g0 + f, b.serialize()))
-        print(f"window {w0}..{starts[-1] + gop} coded")
+        say(f"window {w0}..{starts[-1] + gop} coded")
 
     window = max(1, args.window_gops) * gop
     with policy_from_name(args.compute_dtype):
@@ -279,15 +317,17 @@ def _encode_level_batched(args, frames, coder, intra_coder, device) -> dict:
         family=args.family, width=w, height=h, gop=gop, n_frames=n,
         frames=records, mode=1, max_batch=args.max_batch,
         dtype=1 if args.compute_dtype == "bfloat16" else 0,
-        window_gops=max(1, args.window_gops), mesh=1,
+        window_gops=max(1, args.window_gops), mesh=args.mesh,
     )
     blob = seq.serialize()
-    with open(args.bin, "wb") as f:
-        f.write(blob)
+    if mesh is None or mesh.rank == 0:
+        with open(args.bin, "wb") as f:
+            f.write(blob)
     out = finish(recons, device, h, w)
-    print(
+    mesh_note = f", mesh {args.mesh}" if mesh is not None else ""
+    say(
         f"wrote {len(blob)} bytes ({n} frames, "
-        f"{8 * len(blob) / (h * w * n):.4f} bpp, level-batched) to "
+        f"{8 * len(blob) / (h * w * n):.4f} bpp, level-batched{mesh_note}) to "
         f"{args.bin} in {time.perf_counter() - t0:.3f}s"
     )
     return out
@@ -309,13 +349,16 @@ def main(argv=None):
     from tpuvc_torch.gop.order import sequence_schedule
     from tpuvc_torch.ops.precision import policy_from_name, set_deterministic
 
-    check_unported(args)
+    check_mesh(args)
     if args.level_batched and args.adaptive:
         raise SystemExit(
             "--adaptive needs the sequential mode (the per-frame ratio "
             "search breaks level batching); drop one flag"
         )
     device = resolve_device(args.device)
+    mesh = join_mesh(args.mesh, args.dist_backend, args.device)
+    if mesh is not None:
+        device = mesh.device
     set_deterministic()
     frames = load_frames(args)
     h, w = frames.size
@@ -324,7 +367,11 @@ def main(argv=None):
     intra_coder = build_intra(args, device)
 
     if args.level_batched:
-        return _encode_level_batched(args, frames, coder, intra_coder, device)
+        try:
+            return _encode_level_batched(args, frames, coder, intra_coder, device, mesh)
+        finally:
+            if mesh is not None:
+                mesh.close()
 
     order, typ = sequence_schedule(args.gop, n)
     dpb = DecodedPictureBuffer()

@@ -29,8 +29,8 @@ Weights: ``{intra_weights}/latest.msgpack`` and
 ``write_plots=true`` draws ``rd_curve.png`` and one
 ``{seq}_l{level}_frames.png`` per sequence and level beside the results
 CSV; without matplotlib it exits naming it before the eval starts.
-``device_count > 1`` is not ported yet and exits naming its ROADMAP.md
-item.
+``device_count`` is read by nothing, as in tpuvc (whose config declares
+it and whose eval runs on one device whatever it says).
 """
 
 from __future__ import annotations
@@ -42,8 +42,8 @@ import os
 import time
 
 def check_unported(cfg) -> None:
-    """Exit, before any work, on the options this machine or the port
-    cannot run: ``write_plots`` without matplotlib, ``device_count > 1``."""
+    """Exit, before any work, on an option this machine cannot run:
+    ``write_plots`` without matplotlib."""
     if cfg.write_plots:
         from tpuvc_torch.eval.plots import require_matplotlib
 
@@ -51,9 +51,6 @@ def check_unported(cfg) -> None:
             require_matplotlib()
         except ImportError as e:
             raise SystemExit(f"write_plots=true: {e}") from e
-    if cfg.device_count > 1:
-        raise SystemExit("device_count > 1 is not ported to tpuvc_torch yet: "
-                         "ROADMAP.md queue A, A16 (parallel/mesh.py)")
 
 
 def build_models(cfg, rng_seed: int = 0):

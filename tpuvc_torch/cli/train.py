@@ -28,8 +28,18 @@ JAX's draws from ``fold_in(key(seed + 1), it)``.
 Checkpoints are tpuvc's flax-msgpack trees (``latest.msgpack`` every
 ``val_every`` steps and at the end, ``best.msgpack`` when the validation
 BD-rate improves), so a run resumes from, and its weights load in, either
-package. With more than one card visible, training still runs on the one
-``--device``: data-parallel training is ROADMAP.md A16. The last log line,
+package.
+
+Data-parallel training runs one process per device, launched by torchrun
+(``python -m torch.distributed.run --nproc_per_node N -m
+tpuvc_torch.cli.train ...``), as tpuvc's runs over every visible device:
+every rank draws the same seeded global batch and trains on its rows of it
+(tpuvc_torch.train.trainer.data_parallel averages the gradients before each
+update, from rank 0's broadcast parameters and optimizer state), so the
+ranks' parameters stay bit-identical; a run checks that at its end. Rank 0
+alone logs, writes checkpoints and the summary. ``batch_size`` must divide
+by N. ``--dist_backend`` names the transport (default nccl on cuda, gloo on
+the CPU; ranks that share a card need gloo). The last log line,
 ``summary {...}``, gives the run's rates, last metrics, the steps the
 optimizer dropped for non-finite gradients, peak device memory and kernel
 launches; ``main`` returns the same dict.
@@ -38,6 +48,7 @@ launches; ``main`` returns the same dict.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -261,33 +272,59 @@ def main(argv=None):
     p.add_argument("--config", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda)")
+    p.add_argument("--dist_backend", default=None,
+                   help="torch.distributed backend under torchrun (default nccl "
+                        "on cuda, gloo on the CPU)")
     p.add_argument("overrides", nargs="*")
     args = p.parse_args(argv)
 
     from tpuvc_torch.config import TrainConfig, apply_overrides, load_yaml
+    from tpuvc_torch.parallel.mesh import make_mesh, world_size
 
     cfg = load_yaml(args.config, TrainConfig) if args.config else TrainConfig()
     apply_overrides(cfg, args.overrides)
+    mesh = None
+    if world_size() > 1:
+        if cfg.batch_size % world_size():
+            raise SystemExit(f"batch_size={cfg.batch_size} does not divide over "
+                             f"WORLD_SIZE={world_size()} ranks")
+        mesh = make_mesh(backend=args.dist_backend, device=args.device)
+    rank0 = mesh is None or mesh.rank == 0
 
     os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     log = logging.getLogger("tpuvc_torch.train")
-    log.setLevel(logging.INFO)
+    # Rank 0 alone logs (and writes train.log); the others say only warnings.
+    log.setLevel(logging.INFO if rank0 else logging.WARNING)
     log.propagate = False
     fmt = logging.Formatter("%(asctime)s %(message)s")
-    handlers = [logging.StreamHandler(),
-                logging.FileHandler(os.path.join(cfg.checkpoint_dir, "train.log"))]
+    handlers = [logging.StreamHandler()]
+    if rank0:
+        handlers.append(logging.FileHandler(os.path.join(cfg.checkpoint_dir, "train.log")))
     for h in handlers:
         h.setFormatter(fmt)
         log.addHandler(h)
     try:
-        return _train(cfg, args.device, log)
+        return _train(cfg, args.device, log, mesh)
     finally:
         for h in handlers:
             log.removeHandler(h)
             h.close()
+        if mesh is not None:
+            mesh.close()
 
 
-def _train(cfg, device_name: str, log) -> dict:
+def params_sha256(params: dict) -> str:
+    """One digest of every tensor's bytes, in the parameters' order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for n, p in params.items():
+        h.update(n.encode())
+        h.update(hashlib.sha256(p.detach().cpu().contiguous().numpy().tobytes()).digest())
+    return h.hexdigest()
+
+
+def _train(cfg, device_name: str, log, mesh=None) -> dict:
     import numpy as np
     import torch
 
@@ -295,19 +332,19 @@ def _train(cfg, device_name: str, log) -> dict:
     from tpuvc_torch.data.vimeo import SyntheticSeptuplets, VimeoSeptuplets, make_batch_iterator
     from tpuvc_torch.ops import deform, warp
     from tpuvc_torch.ops.precision import policy_from_name, set_deterministic
-    from tpuvc_torch.train.trainer import make_optimizer
+    from tpuvc_torch.parallel.mesh import all_gather_objects, replicate, shard_batch
+    from tpuvc_torch.train.trainer import data_parallel, make_optimizer
     from tpuvc_torch.utils.checkpoint import load_checkpoint, save_checkpoint
     from tpuvc_torch.utils.convert import params_from_jax, params_to_jax
 
-    device = resolve_device(device_name)
+    device = resolve_device(device_name) if mesh is None else mesh.device
+    rank0 = mesh is None or mesh.rank == 0
     log.info("config: %s", cfg)
     log.info("seed: %d", cfg.seed)
+    if mesh is not None:
+        log.info("data-parallel over %d ranks (%s)", mesh.size, mesh.backend)
     if device.type == "cuda":
         set_deterministic()
-        if torch.cuda.device_count() > 1:
-            log.info("%d CUDA devices visible; data-parallel training is not ported "
-                     "yet (ROADMAP.md A16): training on %s alone",
-                     torch.cuda.device_count(), device)
     np_rng = np.random.default_rng(cfg.seed)
 
     if os.path.isdir(cfg.dataset_root):
@@ -338,6 +375,9 @@ def _train(cfg, device_name: str, log) -> dict:
     model.to(device)
     params = dict(model.named_parameters())
     opt_state = tx.init(params)
+    if mesh is not None:
+        params = replicate(mesh, params)
+        opt_state = replicate(mesh, opt_state)
 
     validator = make_bd_validator(cfg, fam, model, log, device)
     bd_ck = None
@@ -346,11 +386,13 @@ def _train(cfg, device_name: str, log) -> dict:
         from tpuvc_torch.train.trainer import BDCheckpointer
 
         anchor_bpp, anchor_psnr = ANCHORS["icip2024_train"]
-        bd_ck = BDCheckpointer(
-            anchor_bpp, anchor_psnr,
-            save_fn=lambda state: save_checkpoint(
-                os.path.join(cfg.checkpoint_dir, "best.msgpack"), state),
-        )
+        def save_best(state):
+            # Every rank validates (the same curve), so the checkpointer's
+            # state agrees across ranks; rank 0 writes.
+            if rank0:
+                save_checkpoint(os.path.join(cfg.checkpoint_dir, "best.msgpack"), state)
+
+        bd_ck = BDCheckpointer(anchor_bpp, anchor_psnr, save_fn=save_best)
 
     def sync():
         if device.type == "cuda":
@@ -365,20 +407,27 @@ def _train(cfg, device_name: str, log) -> dict:
         t_step = time.perf_counter()
         # uint8 upload and on-device conversion: a quarter of the float
         # batch's host-to-device traffic, the same values as to_float
-        batch = torch.from_numpy(next(batches)).to(device).to(torch.float32) / 255.0
-        with policy_from_name(cfg.compute_dtype):
+        # (every rank draws the global batch and uploads its rows of it)
+        batch = torch.from_numpy(next(batches))
+        ranks = contextlib.nullcontext()
+        if mesh is not None:
+            ranks = data_parallel(mesh, batch.shape[0])
+            batch = shard_batch(mesh, batch)
+        batch = batch.to(device).to(torch.float32) / 255.0
+        with policy_from_name(cfg.compute_dtype), ranks:
             params, opt_state, metrics, coded = run_step(
                 params, opt_state, batch, (cfg.seed + 1, it), it)
         sync()
         step_s.append(time.perf_counter() - t_step)
-        coded_frames.append(coded)
+        coded_frames.append(coded * (1 if mesh is None else mesh.size))
         if it % 100 == 0 or it + 1 == cfg.total_steps:
             m = {k: float(v) for k, v in metrics.items()}
             rate = (it + 1 - start_step) / (time.perf_counter() - t0)
             log.info("step %d %s (%.2f it/s)", it, m, rate)
         if (it + 1) % cfg.val_every == 0 or it + 1 == cfg.total_steps:
-            save_checkpoint(resume, {"params": params_to_jax(model), "step": it + 1})
-            log.info("checkpointed at step %d", it + 1)
+            if rank0:
+                save_checkpoint(resume, {"params": params_to_jax(model), "step": it + 1})
+                log.info("checkpointed at step %d", it + 1)
             if validator is not None:
                 validations += 1
                 bpps, psnrs = validator()
@@ -401,6 +450,13 @@ def _train(cfg, device_name: str, log) -> dict:
         "validations": validations,
         "best_bd_rate": bd_ck.best_bd if bd_ck is not None else None,
     }
+    if mesh is not None:
+        # The ranks applied the same updates: their parameters must agree.
+        digests = all_gather_objects(mesh, params_sha256(params))
+        summary.update(world_size=mesh.size, dist_backend=mesh.backend,
+                       rank_params_sha256=digests)
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"the ranks' parameters differ after training: {digests}")
     log.info("summary %s", json.dumps(summary))
     return summary
 

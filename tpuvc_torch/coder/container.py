@@ -273,7 +273,8 @@ class VSequenceBitstream:
 
     ``mesh`` (>=1) records over how many devices the encoder's level
     batches were sharded (tpuvc's ``--mesh``); the decoder must shard alike.
-    The port codes on one device (mesh=1).
+    In the port the mesh is one process per device (``encode_v --mesh``,
+    the coders' ``set_shard``).
 
     Layout: b"TPV3" | uint8 family | uint16 width | uint16 height |
     uint16 gop | uint16 n_frames | uint8 mode | uint8 max_batch |

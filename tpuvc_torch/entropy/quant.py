@@ -6,6 +6,21 @@ from __future__ import annotations
 import torch
 
 
+class RowNoise:
+    """A noise source for one data-parallel rank: it draws for the whole
+    batch of ``total`` rows from ``generator`` and hands out rows
+    ``[start, start + b)``, so the rank adds its rows of the noise a
+    one-process step adds (tpuvc_torch.train.trainer.data_parallel)."""
+
+    def __init__(self, generator: torch.Generator, total: int, start: int):
+        self.generator, self.total, self.start = generator, total, start
+
+    def rand(self, shape, device, dtype) -> torch.Tensor:
+        full = torch.rand((self.total, *shape[1:]), generator=self.generator,
+                          device=device, dtype=dtype)
+        return full[self.start : self.start + shape[0]]
+
+
 def ste_round(x: torch.Tensor) -> torch.Tensor:
     """Round with a straight-through (identity) gradient."""
     return x + (torch.round(x) - x).detach()
@@ -21,7 +36,7 @@ def quantize(
 
     mode:
       'noise'      — add U(-0.5, 0.5) (training surrogate; needs a generator
-                     on x's device).
+                     on x's device, or a :class:`RowNoise`).
       'ste'        — straight-through round of (x - means) + means.
       'dequantize' — hard round of (x - means) + means (inference).
       'symbols'    — integer symbols round(x - means) (for the coder).
@@ -30,9 +45,12 @@ def quantize(
     if mode == "noise":
         if generator is None:
             raise ValueError("noise quantization needs a torch.Generator")
-        noise = torch.rand(
-            x.shape, generator=generator, device=x.device, dtype=x.dtype
-        )
+        if isinstance(generator, RowNoise):
+            noise = generator.rand(x.shape, x.device, x.dtype)
+        else:
+            noise = torch.rand(
+                x.shape, generator=generator, device=x.device, dtype=x.dtype
+            )
         return x + (noise - 0.5)
     centered = x if means is None else x - means
     if mode == "symbols":

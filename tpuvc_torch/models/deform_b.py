@@ -29,6 +29,7 @@ from tpuvc_torch.models.layers import init_weights
 from tpuvc_torch.models.ms_feature import MSFeature, ReconstructorDeconv, TemporalEnc
 from tpuvc_torch.ops.deform import DeformConv
 from tpuvc_torch.ops.precision import set_deterministic
+from tpuvc_torch.parallel.mesh import sharded_level_decode, sharded_level_encode
 
 #: Each reference's head: 144 offset channels (8 groups x 9 taps x (dy, dx))
 #: then 72 mask logits.
@@ -160,6 +161,12 @@ class DeformBCoder:
         self.model = model.to(self.device).eval()
         self.offset_coder = CondELICCoder(self.model.offset_compressor)
         self.res_coder = CondELICCoder(self.model.residual_compressor)
+        self.shard = None  # see set_shard
+
+    def set_shard(self, shard) -> None:
+        """Shard level-batched coding over a mesh, as
+        :meth:`tpuvc_torch.models.lhbdc.LHBDCCoder.set_shard` describes."""
+        self.shard = shard
 
     def _to(self, *xs):
         return [x.to(self.device) for x in xs]
@@ -206,6 +213,7 @@ class DeformBCoder:
         bits = self._header(s, off["z_shape"], off["streams"] + res["streams"])
         return bits, self._recon(x_comp, res["outs"])
 
+    @sharded_level_encode
     @torch.no_grad()
     def encode_level_batch_async(self, xref1, xref2, xcur, s):
         """Batched real coding of one hierarchy level with deferred host
@@ -238,6 +246,7 @@ class DeformBCoder:
         resolve, x_hat = self.encode_level_batch_async(xref1, xref2, xcur, s)
         return resolve(), x_hat
 
+    @sharded_level_decode
     @torch.no_grad()
     def decode_level_batch(self, xref1, xref2, bitstreams):
         """Inverse of encode_level_batch (the encoder's batch shapes)."""

@@ -34,6 +34,7 @@ from tpuvc_torch.models.layers import init_weights
 from tpuvc_torch.models.unet import UNet
 from tpuvc_torch.ops.precision import set_deterministic
 from tpuvc_torch.ops.warp import warp
+from tpuvc_torch.parallel.mesh import sharded_level_decode_async, sharded_level_encode
 
 #: tpuvc's ``flexrate._per_sample_bits``: bits per sample, summed over H, W, C.
 _per_sample_bits = per_sample_bits
@@ -228,6 +229,12 @@ class FlexRateCoder:
         self.model = model.to(self.device).eval()
         self.flow_coder = GainedHyperpriorCoder(self.model.flow_compressor)
         self.res_coder = GainedHyperpriorCoder(self.model.residual_compressor)
+        self.shard = None  # see set_shard
+
+    def set_shard(self, shard) -> None:
+        """Shard level-batched coding over a mesh, as
+        :meth:`tpuvc_torch.models.lhbdc.LHBDCCoder.set_shard` describes."""
+        self.shard = shard
 
     def _to(self, *xs):
         return [x.to(self.device) for x in xs]
@@ -290,6 +297,7 @@ class FlexRateCoder:
         flow_hat = self.flow_coder.synthesize(flow_y_hat, n, l)
         return self._compensate(x_before, x_after, process, flow_hat)
 
+    @sharded_level_encode
     @torch.no_grad()
     def encode_level_batch_async(self, x_before, x_current, x_after, n: int,
                                  l: float = 1.0):
@@ -323,6 +331,7 @@ class FlexRateCoder:
         resolve, x_hat = self.encode_level_batch_async(x_before, x_current, x_after, n, l)
         return resolve(), x_hat
 
+    @sharded_level_decode_async
     def decode_level_batch_async(self, bitstreams):
         """Start one level's entropy decode now (host rANS and the gained
         entropy parameters on workers; it needs no references) and return

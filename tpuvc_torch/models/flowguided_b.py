@@ -33,6 +33,7 @@ from tpuvc_torch.ops.pad import pad_to_multiple, unpad
 from tpuvc_torch.ops.precision import set_deterministic
 from tpuvc_torch.ops.resample import avg_pool2d, bilinear_resize
 from tpuvc_torch.ops.warp import warp
+from tpuvc_torch.parallel.mesh import sharded_level_decode, sharded_level_encode
 
 
 def convert_scales(scale1, scale2):
@@ -217,6 +218,12 @@ class FlowGuidedBCoder:
         self.model = model.to(self.device).eval()
         self.offset_coder = CondELICCoder(self.model.offset_compressor)
         self.res_coder = CondELICCoder(self.model.residual_compressor)
+        self.shard = None  # see set_shard
+
+    def set_shard(self, shard) -> None:
+        """Shard level-batched coding over a mesh, as
+        :meth:`tpuvc_torch.models.lhbdc.LHBDCCoder.set_shard` describes."""
+        self.shard = shard
 
     def _to(self, *xs):
         return [x.to(self.device) for x in xs]
@@ -274,6 +281,7 @@ class FlowGuidedBCoder:
                             off["streams"] + res["streams"])
         return bits, self._recon(x_comp, res["outs"])
 
+    @sharded_level_encode
     @torch.no_grad()
     def encode_level_batch_async(self, xref1, xref2, xcur, s, scale1, scale2,
                                  down_ratio: int = 1):
@@ -317,6 +325,7 @@ class FlowGuidedBCoder:
         )
         return resolve(), x_hat
 
+    @sharded_level_decode
     @torch.no_grad()
     def decode_level_batch(self, xref1, xref2, bitstreams):
         """Inverse of encode_level_batch (the encoder's batch shapes)."""

@@ -35,6 +35,7 @@ from tpuvc_torch.ops.pad import pad_to_multiple, unpad
 from tpuvc_torch.ops.precision import set_deterministic
 from tpuvc_torch.ops.resample import avg_pool2d, upsample_flow
 from tpuvc_torch.ops.warp import warp
+from tpuvc_torch.parallel.mesh import sharded_level_decode_async, sharded_level_encode
 
 
 class LHBDC(nn.Module):
@@ -161,6 +162,25 @@ class LHBDCCoder:
         self.model = model.to(self.device).eval()
         self.mv_coder = HyperpriorCoder(self.model.mv_compressor)
         self.res_coder = HyperpriorCoder(self.model.residual_compressor)
+        self.shard = None  # see set_shard
+
+    def set_shard(self, shard) -> None:
+        """Shard level-batched coding over a mesh: ``shard`` from
+        tpuvc_torch.parallel.mesh.level_batch_sharder, or None to code on
+        this device alone.
+
+        tpuvc applies its sharder at the inputs of every device stage, its
+        sub-coders' included, and XLA keeps each array logically whole. In
+        the port each rank is a process of its own, so the split is coarser:
+        the level-batch entry points take this rank's rows on entry, code
+        them end to end (every sub-coder stage sees the smaller batch, and
+        needs no hook of its own), and gather the reconstructions (and, on
+        the encoder, the per-frame streams) on exit; a level the mesh size
+        does not divide is coded whole on every rank. The rule depends only
+        on (batch, mesh size), so a decoder over a mesh of the same size
+        (``VSequenceBitstream.mesh``) runs the encoder's batch shapes and
+        reproduces its floats."""
+        self.shard = shard
 
     def _to(self, *xs):
         return [x.to(self.device) for x in xs]
@@ -240,6 +260,7 @@ class LHBDCCoder:
         flow_hat = self.mv_coder.synthesize(mv_y_hat)
         return self._compensate(x_before, x_after, flow_ba, flow_ab, flow_hat)
 
+    @sharded_level_encode
     @torch.no_grad()
     def encode_level_batch_async(self, x_before, x_current, x_after,
                                  rate_id: int = 0):
@@ -290,6 +311,7 @@ class LHBDCCoder:
         )
         return resolve(), x_hat
 
+    @sharded_level_decode_async
     def decode_level_batch_async(self, bitstreams):
         """Start one level's entropy decode now (host rANS + entropy
         parameters on workers; it needs no references) and return

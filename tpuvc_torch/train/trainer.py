@@ -23,10 +23,19 @@ drawn before the frame's forward, and the forward seeds a fresh
 that runs again in the backward therefore draws the same noise (checkpoint's
 ``preserve_rng_state`` restores only the default generators). The draws
 cannot equal JAX's.
+
+Data parallelism (tpuvc's sharded jit, where XLA inserts the gradient
+all-reduce): each rank of a mesh runs the step on its rows of the global
+batch inside :func:`data_parallel`, which gives its frames their rows of
+the global batch's noise and makes :func:`finish_step` average the
+gradients, the loss and the metrics over the ranks (one flattened
+all-reduce in the parameters' order) before the update; every rank then
+applies the same update to the same parameters.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, replace
 from typing import Any, Callable
 
@@ -235,9 +244,38 @@ def noise_seeds(key, n: int) -> list[int]:
     return [int(s) for s in np.random.SeedSequence(key).generate_state(n)]
 
 
-def generator(seed: int, device) -> torch.Generator:
-    """A fresh generator on ``device`` seeded with ``seed``."""
-    return torch.Generator(device=device).manual_seed(seed)
+#: (mesh, global batch) of the data-parallel steps running now, or None.
+#: A module global, not a contextvar: a checkpointed forward runs again in
+#: the backward, on autograd's device thread.
+_DATA_PARALLEL = None
+
+
+@contextlib.contextmanager
+def data_parallel(mesh, batch: int):
+    """Run the steps inside as this rank's share of data-parallel steps
+    over ``mesh`` (tpuvc_torch.parallel.mesh) on a global batch of
+    ``batch`` rows, this rank holding ``shard_batch``'s rows of it."""
+    global _DATA_PARALLEL
+    if batch % mesh.size:
+        raise ValueError(f"batch {batch} does not divide over a mesh of {mesh.size}")
+    prev, _DATA_PARALLEL = _DATA_PARALLEL, (mesh, batch)
+    try:
+        yield
+    finally:
+        _DATA_PARALLEL = prev
+
+
+def generator(seed: int, device):
+    """A fresh generator on ``device`` seeded with ``seed``; inside
+    :func:`data_parallel`, a :class:`~tpuvc_torch.entropy.quant.RowNoise`
+    that gives this rank its rows of the global batch's draws."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if _DATA_PARALLEL is None:
+        return gen
+    from tpuvc_torch.entropy.quant import RowNoise
+
+    mesh, batch = _DATA_PARALLEL
+    return RowNoise(gen, batch, mesh.rank * (batch // mesh.size))
 
 
 def _grads(loss, params: dict) -> dict:
@@ -246,11 +284,34 @@ def _grads(loss, params: dict) -> dict:
     return {n: torch.zeros_like(params[n]) if g is None else g for n, g in zip(names, got)}
 
 
+def mean_over_ranks(mesh, grads: dict, loss, metrics: dict):
+    """(grads, loss, metrics) averaged over the ranks of ``mesh``: the
+    gradients flattened in their dict's order into one all-reduce, the
+    loss and the tensor metrics in another."""
+    from tpuvc_torch.parallel.mesh import all_reduce_mean
+
+    names = list(grads)
+    flat = all_reduce_mean(mesh, torch.cat([grads[n].reshape(-1) for n in names]))
+    out, at = {}, 0
+    for n in names:
+        size = grads[n].numel()
+        out[n] = flat[at : at + size].view_as(grads[n])
+        at += size
+    keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
+    vals = all_reduce_mean(mesh, torch.stack(
+        [loss.detach().float()] + [metrics[k].detach().float().reshape(()) for k in keys]))
+    metrics = {**metrics, **{k: vals[i + 1] for i, k in enumerate(keys)}}
+    return out, vals[0], metrics
+
+
 def finish_step(loss, metrics: dict, params: dict, opt_state, tx):
-    """The rest of a step after its loss: gradients, ``tx.update`` with the
-    loss as the plateau's value, the update applied in place, and the
-    metrics (the loss among them) detached."""
+    """The rest of a step after its loss: gradients (averaged over the
+    ranks inside :func:`data_parallel`), ``tx.update`` with the loss as the
+    plateau's value, the update applied in place, and the metrics (the loss
+    among them) detached."""
     grads = _grads(loss, params)
+    if _DATA_PARALLEL is not None:
+        grads, loss, metrics = mean_over_ranks(_DATA_PARALLEL[0], grads, loss, metrics)
     updates, opt_state = tx.update(grads, opt_state, params, value=loss.detach())
     apply_updates(params, updates)
     metrics = {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
