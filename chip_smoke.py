@@ -15,14 +15,18 @@ or P-frames) to a file and back, the RD-eval CLI evaluates a sequence,
 FlowGuidedB codes at every down ratio, bench_torch.py runs bench.py's
 measurement, and the train CLI trains every family at batch 8 on 256x256
 crops, reference checkpoints imported at full width code B-frames, the
-still-image eval runs at the Kodak size, and the mesh paths run in two
-torchrun ranks sharing the card over gloo (and NCCL in a one-rank group);
-each decode must reproduce its encoder's reconstructions bit for bit. Each phase runs under its own time limit and prints JSON lines:
+still-image eval runs at the Kodak size, the mesh paths run in two
+torchrun ranks sharing the card over gloo (and NCCL in a one-rank group),
+and LHBDC's forward runs with the frame's rows split over four ranks;
+each decode must reproduce its encoder's reconstructions bit for bit. Each
+phase runs under its own time limit and prints JSON lines:
 
   device             card name, power limit, software versions
   build              warp and deform kernels (nvcc, in parallel) and rANS
                      library (g++) build times
-  warp_check         kernel vs warp_plain per shape: max abs error (<= 1e-5)
+  warp_check         kernel vs warp_plain per shape, whole frames and rows
+                     [y0, y0 + rows) of a reference (also held to those
+                     rows of a whole-frame launch): max abs error (<= 1e-5)
                      and bit for bit,
                      kernel / plain / F.grid_sample times, byte bound
   warp_and_blend     ops.warp.warp_and_blend at (4,1088,1920,3) lhbdc: two
@@ -115,7 +119,7 @@ each decode must reproduce its encoder's reconstructions bit for bit. Each phase
                      matplotlib where it is missing (draws where it is not)
   mesh_sequence_cli  encode_v --mesh 2 in two gloo ranks sharing the card
                      (python -m torch.distributed.run), decode_v in a fresh
-                     2-rank launch: LHBDC 33 and FlowGuidedB 17 frames of
+                     2-rank launch: LHBDC and FlowGuidedB 17 frames of
                      1088x1920, level-batched at cap 2, bf16: the header's
                      mesh, per-frame sha256 of every rank's decode against
                      the encoder's, the largest difference from a mesh-1
@@ -130,6 +134,14 @@ each decode must reproduce its encoder's reconstructions bit for bit. Each phase
                      bars, steps/s
   nccl_world1        a one-rank NCCL group on cuda:0: make_mesh and the
                      collectives of CUDA tensors give the expected values
+  mesh_spatial_forward  LHBDC(N=128)'s forward of one 1088x1920 B-frame
+                     with its rows split over four gloo ranks sharing the
+                     card (tpuvc_torch.parallel.spatial: explicit row
+                     fetches, the warp kernel at each rank's first row)
+                     against the same forward unsharded in this process:
+                     forward ms, peak memory, warp launches and their y0,
+                     bytes fetched, warp samples in other ranks' rows,
+                     x_hat's difference, flipped latents, the bits
   adaptive_ratios    FlowGuidedB coded at down ratios 2, 4, 8, 16, each
                      stream decoded bit for bit
   bench_torch        bench_torch.py in a subprocess: its last record must
@@ -200,6 +212,17 @@ WARP_SHAPES = [
     # DMC's motion compensation: the 48-channel feature warp (the frame's
     # own is the exact (1, 1088, 1920, 3) row above).
     ("exact", (1, 1088, 1920, 48)),
+]
+
+# Warps of output rows [y0, y0 + rows) of a whole reference (the kernel's
+# row offset), at mesh_spatial_forward's shapes: rank 1's rows of SPyNet's
+# finest level (its four flows batched), rank 3's rows of a compensation
+# warp, and rank 3's ragged rows of SPyNet's coarsest level. (compat, whole
+# shape, y0, rows); the other ranks' and levels' go to path_shapes_check.
+WARP_ROW_SHAPES = [
+    ("lhbdc", (4, 1088, 1920, 3), 272, 272),
+    ("lhbdc", (1, 1088, 1920, 3), 816, 272),
+    ("lhbdc", (4, 34, 60, 3), 27, 7),
 ]
 
 # The coded window: bench.py's frame size and GOP, two GOPs.
@@ -277,51 +300,68 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 
 
 def warp_check(torch) -> list[dict]:
+    """The kernel against warp_plain at WARP_SHAPES (whole frames) and
+    WARP_ROW_SHAPES (rows [y0, y0 + rows), also held to those rows of a
+    whole-frame launch): bit for bit; kernel, plain and F.grid_sample times
+    and the byte bound. The bound counts the reference rows the samples
+    reach (per batch, the lowest to the highest), the flow and the output."""
     import torch.nn.functional as F
 
     from tpuvc_torch.ops import warp as W
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for compat, shape in WARP_SHAPES:
+    cases = [(c, s, 0, s[1]) for c, s in WARP_SHAPES] + WARP_ROW_SHAPES
+    for compat, shape, y0, n_rows in cases:
         B, H, Wd, C = shape
         img = torch.rand(shape, generator=gen, device="cuda")
-        flow = 4.0 * torch.randn((B, H, Wd, 2), generator=gen, device="cuda")
-        out_k = W.warp(img, flow, compat)
-        out_p = W.warp_plain(img, flow, compat)
+        flow_full = 4.0 * torch.randn((B, H, Wd, 2), generator=gen, device="cuda")
+        flow = flow_full[:, y0:y0 + n_rows].contiguous()
+        out_k = W.warp(img, flow, compat, y0)
+        out_p = W.warp_plain(img, flow, compat, y0)
         torch.cuda.synchronize()
         err = float((out_k - out_p).abs().max())
         bit_exact = bool(torch.equal(out_k, out_p))
-        del out_k, out_p
+        if n_rows != H:
+            bit_exact = bit_exact and bool(torch.equal(
+                out_k, W.warp(img, flow_full, compat)[:, y0:y0 + n_rows]))
+        del out_k, out_p, flow_full
         if not (err <= 1e-5 and bit_exact):
-            raise AssertionError(f"warp {compat} {shape}: max abs err {err}, bit_exact {bit_exact}")
+            raise AssertionError(f"warp {compat} {shape} rows {y0}+{n_rows}: max abs err {err}, "
+                                 f"bit_exact {bit_exact}")
 
         # One F.grid_sample call for the same sampling, as a yardstick only.
         sx, sy, zero = W._scales(compat, H, Wd)
         shift = -0.5 if zero else 0.0
         xs = torch.arange(Wd, device="cuda", dtype=torch.float32)
-        ys = torch.arange(H, device="cuda", dtype=torch.float32)
+        ys = torch.arange(y0, y0 + n_rows, device="cuda", dtype=torch.float32)
         gx = (xs + (flow[..., 0] + shift) * sx) * (2.0 / (Wd - 1)) - 1.0
         gy = (ys[:, None] + (flow[..., 1] + shift) * sy) * (2.0 / (H - 1)) - 1.0
         grid = torch.stack([gx, gy], dim=-1)
         img_nchw = img.permute(0, 3, 1, 2).contiguous()
         pad = "zeros" if zero else "border"
+        # the reference rows the samples reach, per batch
+        reach = torch.clamp(ys[:, None] + (flow[..., 1] + shift) * sy, 0.0, H - 1.0).floor()
+        lo = reach.amin(dim=(1, 2))
+        hi = torch.clamp(reach.amax(dim=(1, 2)) + 1, max=H - 1)
+        img_rows = int((hi - lo + 1).sum())
 
-        iters = 20 if B * H * Wd > 1e6 else 200
-        ms = time_ms(torch, lambda: W.warp(img, flow, compat), iters)
-        plain_ms = time_ms(torch, lambda: W.warp_plain(img, flow, compat), 3, 1)
+        iters = 20 if B * n_rows * Wd > 1e6 else 200
+        ms = time_ms(torch, lambda: W.warp(img, flow, compat, y0), iters)
+        plain_ms = time_ms(torch, lambda: W.warp_plain(img, flow, compat, y0), 3, 1)
         library_ms = time_ms(
             torch,
             lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
                                   padding_mode=pad, align_corners=True),
             iters,
         )
-        n_out = B * H * Wd * C
-        bytes_moved = 4 * (2 * n_out + 2 * B * H * Wd)
+        n_out = B * n_rows * Wd * C
+        bytes_moved = 4 * (img_rows * Wd * C + n_out + 2 * B * n_rows * Wd)
         bound_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
         bound_ops = 1e3 * WARP_OPS_PER_ELEMENT * n_out / F32_OPS_PER_S
         row = {
             "phase": "warp_check", "compat": compat, "shape": list(shape),
+            "y0": y0, "rows": n_rows,
             "max_abs_err": err, "bit_exact": bit_exact, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(bound_bytes, bound_ops),
@@ -784,10 +824,10 @@ class LaunchLog:
 
 def log_launches() -> dict:
     """Put a LaunchLog in front of each built kernel library. Keys: warp
-    (B, H, W, C, sx, sy, zero), deform (B, H, W, G, Cg, Og, K)."""
+    (B, H, W, C, sx, sy, zero, y0, H_out), deform (B, H, W, G, Cg, Og, K)."""
     from tpuvc_torch.ops import deform, warp
 
-    warp._lib = LaunchLog(warp._get_lib(), "tpuvc_warp_bilinear_nhwc", slice(3, 10))
+    warp._lib = LaunchLog(warp._get_lib(), "tpuvc_warp_bilinear_nhwc", slice(3, 12))
     deform._lib = LaunchLog(deform._get_lib(), "tpuvc_deform_conv_nhwc", slice(6, 13))
     return {"warp": warp._lib.shapes, "deform": deform._lib.shapes}
 
@@ -805,19 +845,19 @@ def path_shapes_check(torch, logged: dict, warp_rows, deform_rows) -> list[dict]
     for r in warp_rows:
         B, H, Wd, C = r["shape"]
         sx, sy, zero = W._scales(r["compat"], H, Wd)
-        checked_warp.add((B, H, Wd, C, sx, sy, int(zero)))
+        checked_warp.add((B, H, Wd, C, sx, sy, int(zero), r["y0"], r["rows"]))
     checked_deform = {(*r["x_shape"][:3], r["groups"], r["x_shape"][3] // r["groups"],
                        r["out_channels"] // r["groups"], 3) for r in deform_rows}
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for key in sorted(logged["warp"] - checked_warp):
-        B, H, Wd, C, sx, sy, zero = key
+        B, H, Wd, C, sx, sy, zero, y0, rows_out = key
         img = torch.rand((B, H, Wd, C), generator=gen, device="cuda")
-        flow = 4.0 * torch.randn((B, H, Wd, 2), generator=gen, device="cuda")
-        out_k = W.warp_kernel(img, flow, sx, sy, bool(zero))
-        out_p = W._warp_plain_sampled(img, flow - 0.5 if zero else flow, sx, sy, bool(zero))
+        flow = 4.0 * torch.randn((B, rows_out, Wd, 2), generator=gen, device="cuda")
+        out_k = W.warp_kernel(img, flow, sx, sy, bool(zero), y0)
+        out_p = W._warp_plain_sampled(img, flow - 0.5 if zero else flow, sx, sy, bool(zero), y0)
         rows.append({"phase": "path_shapes_check", "kernel": "warp", "shape": [B, H, Wd, C],
-                     "sx": sx, "sy": sy, "zero": bool(zero),
+                     "y0": y0, "rows": rows_out, "sx": sx, "sy": sy, "zero": bool(zero),
                      "max_abs_err": float((out_k - out_p).abs().max()),
                      "bit_exact": bool(torch.equal(out_k, out_p))})
         emit(rows[-1])
@@ -2182,7 +2222,7 @@ MESH_ARGS = ["--mesh", "2", "--dist_backend", "gloo"]
 # floats depend on its batch size: level_batch_shape_dependence.)
 MESH_SEQUENCE_RUNS = [
     ("lhbdc", "lhbdc", [
-        "--family", "lhbdc", "--synthetic", "33", "--gop", "16", "--level_batched",
+        "--family", "lhbdc", "--synthetic", "17", "--gop", "16", "--level_batched",
         "--max_batch", "2", "--compute_dtype", "bfloat16", "--l", "845"]),
     ("flowguided_b", "flowguided_b", [
         "--family", "flowguided_b", "--synthetic", "17", "--gop", "16", "--level_batched",
@@ -2584,6 +2624,222 @@ def nccl_world1(tmp: str) -> dict:
     return row
 
 
+# mesh_spatial_forward: LHBDC(N=128) (main_path's model and seed; LHBDC has
+# no zero-initialised head, so its seeded SPyNet already moves pixels) on one
+# B-frame of bench.py's frames (numpy seed 0: frames 0, 8 and 16 of its
+# drifting sequence), float32, 'dequantize', H-sharded over 4 gloo ranks that
+# share the card; the deep levels' shards are uneven and, at the MV path's
+# /64, one is empty (320 // 64 = 5 rows: 2, 2, 1, 0).
+SPATIAL_RANKS = 4
+SPATIAL_BITS_BAR = 1e-3     # relative
+SPATIAL_FLIP_BAR = 1e-5     # share of quantized latents that round the other way
+SPATIAL_X_HAT_BAR = 2e-4    # absolute, where no latent flipped (tpuvc's bar)
+SPATIAL_LATENTS = {"mv_y": ("mv_compressor", "gaussian"),
+                   "mv_z": ("mv_compressor", "entropy_bottleneck"),
+                   "res_y": ("residual_compressor", "gaussian"),
+                   "res_z": ("residual_compressor", "entropy_bottleneck")}
+
+
+def spatial_inputs(torch, device, frame=FRAME):
+    """(LHBDC(N=128) seeded as main_path's, (x_before, x_current, x_after))
+    on ``device``: bench.py's frames 0, 8 and 16 at ``frame``."""
+    import numpy as np
+
+    from tpuvc_torch.models.lhbdc import LHBDC
+
+    rng = np.random.default_rng(0)
+    base = rng.random((*frame, 3), dtype=np.float32)
+    drift = (0.01 * rng.standard_normal((*frame, 3))).astype(np.float32)
+    xs = [torch.from_numpy(np.clip(base + i * drift, 0, 1))[None].to(device) for i in (0, 8, 16)]
+    model = LHBDC(N=128, generator=torch.Generator().manual_seed(0)).to(device).eval()
+    return model, xs
+
+
+class _KeepLatent:
+    """Stands in for a codec's GaussianConditional (a plain object, which
+    takes no forward hook): calls it and keeps its first output."""
+
+    def __init__(self, inner, got: dict, name: str):
+        self._inner, self._got, self._name = inner, got, name
+
+    def __call__(self, *args, **kw):
+        out = self._inner(*args, **kw)
+        self._got[self._name] = out[0].detach()
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def latent_hooks(model) -> dict:
+    """Keep the quantized latents (the entropy models' first output) of the
+    model's last forward under SPATIAL_LATENTS' names: a forward hook on
+    each bottleneck, a _KeepLatent around each Gaussian conditional."""
+    got = {}
+    for name, (codec, part) in SPATIAL_LATENTS.items():
+        owner = getattr(model, codec)
+        if part == "gaussian":
+            owner.gaussian = _KeepLatent(owner.gaussian, got, name)
+        else:
+            def keep(mod, args, out, name=name):
+                got[name] = out[0].detach()
+            getattr(owner, part).register_forward_hook(keep)
+    return got
+
+
+# Run by torchrun in each rank: joins a gloo group on the device named by the
+# second argument, builds spatial_inputs (frame H x W from the third), runs
+# spatial_forward once to warm up and once timed with the launch counts set
+# to 0 just before and read just after, and saves this rank's rows of x_hat,
+# its rows of the quantized latents, the totals, its SpatialStats, the
+# forward's ms and peak memory and the launched warp shapes to
+# OUT/spatial_RANK.pt.
+MESH_SPATIAL_IN_RANKS = """
+import dataclasses, os, sys, time
+import torch
+import torch.distributed as dist
+import chip_smoke
+from tpuvc_torch.ops.precision import set_deterministic
+from tpuvc_torch.parallel import spatial as S
+from tpuvc_torch.parallel.mesh import make_mesh
+out_dir, device, frame = sys.argv[1], sys.argv[2], tuple(int(v) for v in sys.argv[3].split("x"))
+mesh = make_mesh(backend="gloo", device=device)
+cuda = mesh.device.type == "cuda"
+if cuda:
+    set_deterministic()
+logged = chip_smoke.log_launches() if cuda else {"warp": set(), "deform": set()}
+model, frames = chip_smoke.spatial_inputs(torch, mesh.device, frame)
+latents = chip_smoke.latent_hooks(model)
+rows = S.shard_spatial(mesh, frames)
+S.spatial_forward(mesh, model, *rows)
+if cuda:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+dist.barrier()
+logged["warp"].clear()
+stats = S.SpatialStats()
+chip_smoke.reset_launches()
+t0 = time.perf_counter()
+out = S.spatial_forward(mesh, model, *rows, stats=stats)
+if cuda:
+    torch.cuda.synchronize()
+ms = 1e3 * (time.perf_counter() - t0)
+launches = chip_smoke.read_launches()
+torch.save({"rank": mesh.rank, "ms": ms, "launches": launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+            "x_hat": out["x_hat"].x.cpu(), "latents": {k: v.cpu() for k, v in latents.items()},
+            "bits": float(out["bits"]), "sizes": out["sizes"].cpu(),
+            "stats": dataclasses.asdict(stats), "shapes": sorted(logged["warp"])},
+           os.path.join(out_dir, f"spatial_{mesh.rank}.pt"))
+dist.destroy_process_group()
+"""
+
+
+def mesh_spatial_forward(torch, logged: dict, tmp: str, device: str = "cuda",
+                         frame=FRAME) -> dict:
+    """LHBDC's forward with the frame's rows split over SPATIAL_RANKS gloo
+    ranks on the card (tpuvc_torch.parallel.spatial, MESH_SPATIAL_IN_RANKS)
+    against the same forward unsharded in this process, each after a warm
+    forward. One row for the unsharded run and one per rank (forward ms,
+    peak GiB, warp launches and their y0, bytes fetched, the share of warp
+    samples in another rank's rows), then the comparison: x_hat's largest
+    difference and share above 1e-4, the quantized latents that differ (by
+    more than 0.5: a value that rounds the other way), the bits' relative
+    difference. cuDNN picks its algorithm by shape, so a latent near a
+    rounding edge may flip: the phase fails on bits off by more than
+    SPATIAL_BITS_BAR, more than SPATIAL_FLIP_BAR of the latents flipped,
+    x_hat off by more than SPATIAL_X_HAT_BAR where none flipped, a rank
+    without a warp launch, ranks 1.. without a launch at y0 > 0, or no warp
+    sample in another rank's rows."""
+    from tpuvc_torch.parallel.spatial import rows_of
+
+    cuda = device == "cuda"
+    model, frames = spatial_inputs(torch, device, frame)
+    latents = latent_hooks(model)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    with torch.no_grad():
+        model(*frames, "dequantize")
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        ref = model(*frames, "dequantize")
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+    one = {"phase": "mesh_spatial_forward", "run": "one process, unsharded", "frame": list(frame),
+           "model": "LHBDC(N=128) seeded", "mode": "dequantize", "compute_dtype": "float32",
+           "forward_ms": ms, "launches": read_launches(),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
+    emit(one)
+    x_ref = ref["x_hat"].cpu()
+    lat_ref = {k: v.cpu() for k, v in latents.items()}
+    bits_ref = float(ref["bits"])
+    del model, frames, ref, latents
+    if cuda:
+        release_cache(torch)
+    out_dir = os.path.join(tmp, "spatial_ranks")
+    os.makedirs(out_dir)
+    launch_ranks(SPATIAL_RANKS, MESH_SPATIAL_IN_RANKS, [out_dir, device, "x".join(map(str, frame))],
+                 420)
+    ranks = [torch.load(os.path.join(out_dir, f"spatial_{r}.pt"), weights_only=False)
+             for r in range(SPATIAL_RANKS)]
+    rows = []
+    for r in ranks:
+        st = r["stats"]
+        logged["warp"].update(tuple(v) for v in r["shapes"])
+        rows.append({"phase": "mesh_spatial_forward", "run": f"rank {r['rank']} of {SPATIAL_RANKS}",
+                     "rows": list(rows_of(frame[0], SPATIAL_RANKS, r["rank"])),
+                     "forward_ms": r["ms"], "peak_mem_gib": r["peak_mem_gib"],
+                     "launches": r["launches"],
+                     "warps_y0_rows_H_B_C": st["warps"],
+                     "bytes_fetched": st["bytes_fetched"], "fetches": st["fetches"],
+                     "warp_samples_in_other_ranks_rows": st["samples_elsewhere"] / st["samples"]})
+        emit(rows[-1])
+    x_hat = torch.cat([r["x_hat"] for r in ranks], dim=1)
+    d = (x_hat - x_ref).abs()
+    flipped = {k: int(((torch.cat([r["latents"][k] for r in ranks], dim=1) - v).abs() > 0.5).sum())
+               for k, v in lat_ref.items()}
+    n_latents = sum(v.numel() for v in lat_ref.values())
+    bits = ranks[0]["bits"]
+    samples = sum(r["stats"]["samples"] for r in ranks)
+    summary = {
+        "phase": "mesh_spatial_forward", "run": "sharded vs unsharded", "frame": list(frame),
+        "ranks": SPATIAL_RANKS, "dist_backend": "gloo" if cuda else "gloo (CPU)",
+        "ranks_share_one_card": cuda,
+        "x_hat_shape": list(x_hat.shape), "x_hat_max_abs_diff": float(d.max()),
+        "x_hat_share_above_1e-4": float((d > 1e-4).float().mean()),
+        "latents_flipped": flipped, "latents": n_latents,
+        "latents_flipped_share": sum(flipped.values()) / n_latents,
+        "bits": bits, "bits_unsharded": bits_ref, "bits_rel_diff": abs(bits - bits_ref) / bits_ref,
+        "ranks_bits_equal": len({r["bits"] for r in ranks}) == 1,
+        "bytes_fetched_per_forward": sum(r["stats"]["bytes_fetched"] for r in ranks),
+        "warp_samples_in_other_ranks_rows": sum(r["stats"]["samples_elsewhere"] for r in ranks)
+        / samples,
+        "forward_ms_slowest_rank": max(r["ms"] for r in ranks), "forward_ms_unsharded": ms,
+    }
+    emit(summary)
+    fails = []
+    if not summary["bits_rel_diff"] <= SPATIAL_BITS_BAR:
+        fails.append("bits")
+    if not summary["latents_flipped_share"] <= SPATIAL_FLIP_BAR:
+        fails.append("flipped latents")
+    if sum(flipped.values()) == 0 and not summary["x_hat_max_abs_diff"] <= SPATIAL_X_HAT_BAR:
+        fails.append("x_hat")
+    if list(x_hat.shape) != [1, *frame, 3] or not bool(torch.isfinite(x_hat).all()):
+        fails.append("x_hat shape or finiteness")
+    if not summary["ranks_bits_equal"] or summary["warp_samples_in_other_ranks_rows"] <= 0:
+        fails.append("ranks' totals or cross-rank samples")
+    for r, row in zip(ranks, rows):
+        y0s = {w[0] for w in row["warps_y0_rows_H_B_C"]}
+        if cuda and (r["launches"]["warp"] != len(row["warps_y0_rows_H_B_C"])
+                     or r["launches"]["warp"] == 0 or (r["rank"] > 0 and 0 in y0s)):
+            fails.append(f"rank {r['rank']}'s warp launches")
+    if fails:
+        raise AssertionError(f"mesh_spatial_forward: {fails}: {summary}")
+    return {"one_process": one, "ranks": rows, "summary": summary}
+
+
 def warp_and_blend_check(torch) -> dict:
     """``ops.warp.warp_and_blend`` on CUDA tensors at LHBDC's
     motion-compensation shape (4,1088,1920,3), lhbdc mode: two warp kernel
@@ -2749,6 +3005,8 @@ def main() -> int:
         mesh_train = mesh_train_cli(torch, logged, mesh_tmp.name)
     with phase("nccl_world1", 180):
         nccl_world1(mesh_tmp.name)
+    with phase("mesh_spatial_forward", 480):
+        spatial = mesh_spatial_forward(torch, logged, mesh_tmp.name)
     mesh_tmp.cleanup()
     with phase("adaptive_ratios", 180):
         adaptive = adaptive_ratios(torch)
@@ -2784,6 +3042,8 @@ def main() -> int:
                               for k, v in enumerate(by_rank)})
         paths.update({f"mesh_train_cli_rank{k}": v[kernel]
                       for k, v in enumerate(mesh_train["launches_by_rank"])})
+        paths.update({f"mesh_spatial_forward_rank{k}": r["launches"][kernel]
+                      for k, r in enumerate(spatial["ranks"])})
         return paths
 
     warp_head = warp_rows[0]  # the largest shape: SPyNet's finest level
@@ -2799,6 +3059,8 @@ def main() -> int:
     }
     # The warp on the DMC path: its 48-channel feature warp at 1088x1920.
     dmc_head = next(r for r in warp_rows if r["shape"] == [1, 1088, 1920, 48])
+    # The warp with a row offset: rank 1's rows of SPyNet's finest level.
+    spatial_head = next(r for r in warp_rows if r["y0"] > 0)
     kernels = []
     for kernel, head, rows, replaces in (
         ("warp", warp_head, warp_rows, "tpuvc/ops/warp_pallas.py:103"),
@@ -2821,6 +3083,8 @@ def main() -> int:
         if kernel == "warp":
             kernels[-1]["dmc_head"] = {k: dmc_head[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            kernels[-1]["spatial_head"] = {k: spatial_head[k] for k in (
+                "shape", "y0", "rows", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         # the largest training shape: forward, and the backward training runs
         train_head = max((r for r in train_krows if r["kernel"] == kernel),
                          key=lambda r: r["fwd_ms"])

@@ -128,6 +128,39 @@ def test_warp_kernel_rejects_what_it_does_not_take(cuda):
         warp_kernel(img.cpu(), flow.cpu())
 
 
+@pytest.mark.parametrize("compat", ["exact", "lhbdc", "flexrate"])
+@pytest.mark.parametrize("C", [3, 48])
+@pytest.mark.parametrize("y0,rows", [(0, 37), (0, 9), (14, 11), (20, 17), (36, 1)])
+def test_warp_kernel_rows_match_plain_and_the_whole_frame(cuda, compat, C, y0, rows):
+    """A launch for output rows [y0, y0 + rows) (y0 at the first, a middle
+    and the last row; ragged row counts) equals warp_plain with the same y0
+    and those rows of a whole-frame launch, bit for bit: the clamp and the
+    lhbdc H/(H-1) scale are the reference's."""
+    from tpuvc_torch.ops.warp import warp, warp_kernel, warp_plain
+
+    img, flow = (t.to(cuda) for t in _inputs((2, 37, 53, C), scale=6.0, seed=C + y0))
+    full = warp(img, flow, compat)
+    part = flow[:, y0:y0 + rows].contiguous()
+    before = warp_kernel.launches
+    out = warp(img, part, compat, y0)
+    assert warp_kernel.launches == before + 1
+    assert out.shape == (2, rows, 53, C)
+    ref = warp_plain(img, part, compat, y0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert torch.equal(out, full[:, y0:y0 + rows])
+
+
+def test_warp_kernel_refuses_rows_outside_the_reference(cuda):
+    from tpuvc_torch.ops.warp import warp_kernel
+
+    img, flow = (t.to(cuda) for t in _inputs((1, 16, 16, 3)))
+    with pytest.raises(ValueError, match="does not fit"):
+        warp_kernel(img, flow[:, :4].contiguous(), y0=13)
+    with pytest.raises(ValueError, match="does not fit"):
+        warp_kernel(img, flow[:, :4].contiguous(), y0=-1)
+
+
 @pytest.mark.parametrize("img_grad", [True, False])
 @pytest.mark.parametrize("compat", ["lhbdc", "flexrate"])
 def test_warp_backward_matches_plain(cuda, compat, img_grad):
@@ -871,3 +904,24 @@ def test_mesh2_gloo_level_batch_round_trip_on_card(cuda, tmp_path):
             assert got["launches"]["warp"] > 0
             assert fam == "lhbdc" or got["launches"]["deform"] > 0
 
+
+
+def test_spatial_lhbdc_forward_over_4_ranks_on_card(cuda, tmp_path):
+    """Four gloo ranks share the card (tests/torch_mesh_worker.py's
+    spatial_card case): LHBDC(N=32) at 256x192 with its rows sharded,
+    against the unsharded forward on the card at tpuvc's bars for its
+    sharded forward (x_hat 2e-4, sizes 2e-4 relative); each rank launches
+    the warp kernel at its own first row."""
+    from torch_mesh_worker import run_ranks, spatial_card_model, spatial_frames
+    from tpuvc_torch.parallel.spatial import rows_of
+
+    model = spatial_card_model().to(cuda).eval()
+    frames = [torch.from_numpy(x).to(cuda) for x in spatial_frames()]
+    with torch.no_grad():
+        ref = model(*frames, "dequantize")
+    ranks = run_ranks("spatial_card", tmp_path, world=4)
+    for r, out in enumerate(ranks):
+        torch.testing.assert_close(out["x_hat"], ref["x_hat"].cpu(), rtol=0, atol=2e-4)
+        torch.testing.assert_close(out["sizes"], ref["sizes"].cpu(), rtol=2e-4, atol=0)
+        assert out["launches"] == len(out["warps"]) == 6
+        assert {w[0] for w in out["warps"]} == {rows_of(w[2], 4, r)[0] for w in out["warps"]}

@@ -42,7 +42,8 @@ def test_port_modules_import_without_jax():
 
 def test_the_scans_cover_the_mesh_package():
     """tpuvc_torch.parallel is the port's own (tpuvc.parallel imports JAX)."""
-    assert {"tpuvc_torch.parallel", "tpuvc_torch.parallel.mesh"} <= set(PORT_MODULES)
+    assert {"tpuvc_torch.parallel", "tpuvc_torch.parallel.mesh",
+            "tpuvc_torch.parallel.spatial"} <= set(PORT_MODULES)
 
 
 def _imports(path):

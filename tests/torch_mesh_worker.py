@@ -254,8 +254,180 @@ def case_coding_card(mesh, inputs):
     return out
 
 
+def spatial_op_cases():
+    """{name: (input (B, H, W, C), sharded op (sp, rows) -> rows, plain op (x) -> x)}:
+    each sharded op of tpuvc_torch.parallel.spatial and its unsharded
+    counterpart. The heights make shards of 1 row, uneven shards, an empty
+    shard (5 rows over 4 ranks), halos wider than a shard and a reflected pad
+    that reaches past the neighbouring rank."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuvc_torch.models import layers as L
+    from tpuvc_torch.models.unet import _maxpool2, _up2
+    from tpuvc_torch.ops import pad, resample
+
+    def conv(k, stride, cin, cout, seed):
+        g = torch.Generator().manual_seed(seed)
+        c = L.Conv(cin, cout, kernel=k, stride=stride)
+        with torch.no_grad():
+            c.weight.copy_(torch.randn(c.weight.shape, generator=g) / (k * (cin ** 0.5)))
+            c.bias.copy_(0.1 * torch.randn(c.bias.shape, generator=g))
+        return (lambda sp, x: sp.conv(x, c)), c
+
+    cases = {}
+    for name, (k, s, H, cin, cout) in {
+        "conv3x3_s1": (3, 1, 16, 8, 8),
+        "conv3x3_s2_rows_of_1": (3, 2, 4, 16, 16),  # XLA's shard < stride case
+        "conv3x3_s2_h8": (3, 2, 8, 16, 16),
+        "conv5x5_s1_empty_shard": (5, 1, 5, 6, 4),
+        "conv7x7_halo_past_neighbour": (7, 1, 8, 8, 2),
+        "conv1x1_s2": (1, 2, 10, 4, 4),
+        "conv3x3_s2_odd": (3, 2, 17, 4, 4),
+    }.items():
+        sharded, c = conv(k, s, cin, cout, seed=H + k)
+        cases[name] = ((1, H, 6, cin), sharded, c)
+    cases["pixel_shuffle_empty_shard"] = (
+        (1, 5, 3, 8), lambda sp, x: sp.pixel_shuffle(x, 2),
+        lambda x: resample.pixel_shuffle(x, 2))
+    sub = L.init_weights(L.SubpelConv(3, 4, r=2), torch.Generator().manual_seed(3))
+    cases["subpel_conv"] = ((2, 5, 4, 3), lambda sp, x: sp.pixel_shuffle(
+        sp.conv(x, sub.Conv_0), 2), sub)
+    cases["avg_pool2"] = ((2, 8, 6, 3), lambda sp, x: sp.pool(x, 2),
+                          lambda x: resample.avg_pool2d(x, 2))
+    cases["avg_pool4"] = ((1, 16, 8, 2), lambda sp, x: sp.pool(x, 4),
+                          lambda x: resample.avg_pool2d(x, 4))
+    cases["max_pool2"] = ((1, 10, 6, 3), lambda sp, x: sp.max_pool2(x), _maxpool2)
+    cases["up2"] = ((1, 5, 7, 3), lambda sp, x: sp.up2(x), _up2)
+    cases["upsample2x_flow"] = ((2, 9, 5, 2), lambda sp, x: sp.upsample2x_flow(x),
+                                resample.upsample2x_flow)
+    cases["upsample_flow_x4"] = ((1, 17, 6, 2), lambda sp, x: sp.upsample_flow(x, 4),
+                                 lambda x: resample.upsample_flow(x, 4))
+    cases["pad_reflect_wraps"] = ((1, 17, 5, 2), lambda sp, x: sp.pad_to_multiple(x, 64)[0],
+                                  lambda x: pad.pad_to_multiple(x, 64)[0])
+    cases["pad_reflect_past_neighbour"] = (
+        (1, 68, 4, 2), lambda sp, x: sp.pad_to_multiple(x, 64)[0],
+        lambda x: pad.pad_to_multiple(x, 64)[0])
+    cases["unpad"] = ((1, 64, 6, 2), lambda sp, x: sp.unpad(x, (17, 5)),
+                      lambda x: pad.unpad(x, (17, 5)))
+    cases["relu_map"] = ((1, 7, 3, 2), lambda sp, x: x.map(F.relu), F.relu)
+    return cases
+
+
+def case_spatial_ops(mesh, inputs):
+    """Each of spatial_op_cases on seeded inputs: the sharded op's output
+    gathered on every rank and the unsharded op's; fetch_rows of an
+    arbitrary list; the warp of this rank's rows and the whole frame's
+    rows; the bits over the ranks and in one process; shard_spatial's rows
+    and its refusal of an H the mesh does not divide."""
+    import numpy as np
+    import torch
+
+    from tpuvc_torch.entropy.emath import likelihood_to_bits, per_sample_bits
+    from tpuvc_torch.ops.warp import warp_plain
+    from tpuvc_torch.parallel import spatial as S
+
+    stats = S.SpatialStats()
+    sp = S.Spatial(mesh, stats)
+    rng = np.random.default_rng(7)
+    out = {"ops": {}}
+    with torch.no_grad():
+        for name, (shape, sharded, plain) in spatial_op_cases().items():
+            x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            y = sharded(sp, S.take_rows(mesh, x))
+            out["ops"][name] = (S.gather_rows(mesh, y), plain(x),
+                                tuple(y.x.shape), S.rows_of(y.H, mesh.size, mesh.rank))
+        x = torch.from_numpy(rng.standard_normal((2, 11, 3, 4)).astype(np.float32))
+        need = {r: rng.integers(0, 11, size=5 + r) for r in range(mesh.size)}
+        out["fetch"] = (S.fetch_rows(mesh, S.take_rows(mesh, x), lambda r: need[r]),
+                        x[:, need[mesh.rank]])
+        out["warp"] = {}
+        for compat in ("exact", "lhbdc", "flexrate"):
+            for C in (3, 48):
+                img = torch.from_numpy(rng.random((1, 13, 9, C), dtype=np.float32))
+                flow = torch.from_numpy((5 * rng.standard_normal((1, 13, 9, 2))).astype(np.float32))
+                y = sp.warp(S.take_rows(mesh, img), S.take_rows(mesh, flow), compat)
+                out["warp"][(compat, C)] = (y.x, S.rows_of(13, mesh.size, mesh.rank),
+                                            warp_plain(img, flow, compat))
+        liks = [torch.from_numpy(rng.uniform(1e-3, 1, (2, h, 3, 4)).astype(np.float32))
+                for h in (5, 8)]
+        totals, per_sample = sp.bits([S.take_rows(mesh, p).x for p in liks])
+        out["bits"] = (torch.stack(totals), torch.stack(per_sample),
+                       torch.stack([likelihood_to_bits(p) for p in liks]),
+                       torch.stack([per_sample_bits(p) for p in liks]))
+    x = torch.from_numpy(np.arange(2 * 8 * 3 * 1, dtype=np.float32).reshape(2, 8, 3, 1))
+    out["shard_spatial"] = S.shard_spatial(mesh, {"x": x, "y": (x + 1,)})
+    try:
+        S.shard_spatial(mesh, torch.zeros((1, 4 * mesh.size + 1, 3, 3)))
+        out["shard_spatial_odd"] = "accepted"
+    except ValueError as e:
+        out["shard_spatial_odd"] = str(e)
+    out["stats"] = stats
+    return out
+
+
+def spatial_frames(h: int = 256, w: int = 192, seed: int = 0):
+    """tpuvc's TestSpatialSharding frames: (x_before, x_current, x_after) =
+    (base, base + 0.02, base + 0.01), clipped, as (1, h, w, 3)."""
+    import numpy as np
+
+    base = np.random.default_rng(seed).random((h, w, 3), dtype=np.float32)
+    x1, x2 = base, np.clip(base + 0.01, 0, 1)
+    x3 = np.clip(base + 0.02, 0, 1)
+    return tuple(np.ascontiguousarray(x[None]) for x in (x1, x3, x2))
+
+
+def case_spatial_lhbdc(mesh, inputs):
+    """LHBDC(N=16) from the state dict the test wrote, H-sharded over the
+    mesh in 'dequantize' mode: x_hat and x_pred gathered, the bits, the
+    sizes, the stats."""
+    import torch
+
+    from tpuvc_torch.models.lhbdc import LHBDC
+    from tpuvc_torch.parallel import spatial as S
+
+    model = LHBDC(N=16)
+    model.load_state_dict(inputs["state"], strict=True)
+    model.eval()
+    frames = [torch.from_numpy(x) for x in spatial_frames()]
+    stats = S.SpatialStats()
+    out = S.spatial_forward(mesh, model, *S.shard_spatial(mesh, frames), stats=stats)
+    return {"x_hat": S.gather_rows(mesh, out["x_hat"]), "x_pred": S.gather_rows(mesh, out["x_pred"]),
+            "rows": tuple(out["x_hat"].x.shape), "stats": stats,
+            **{k: out[k] for k in ("bits", "bits_flow", "bits_residual", "sizes", "rate")}}
+
+
+def spatial_card_model():
+    """LHBDC(N=32), seeded: the card test's model."""
+    import torch
+
+    from tpuvc_torch.models.lhbdc import LHBDC
+
+    return LHBDC(N=32, generator=torch.Generator().manual_seed(0))
+
+
+def case_spatial_card(mesh, inputs):
+    """spatial_card_model H-sharded over the mesh on the card: x_hat
+    gathered, the sizes, the warp launches and the warps' rows."""
+    import torch
+
+    from tpuvc_torch.ops import warp
+    from tpuvc_torch.ops.precision import set_deterministic
+    from tpuvc_torch.parallel import spatial as S
+
+    set_deterministic()
+    model = spatial_card_model().to(mesh.device).eval()
+    frames = [torch.from_numpy(x).to(mesh.device) for x in spatial_frames()]
+    stats = S.SpatialStats()
+    warp.warp_kernel.launches = 0
+    out = S.spatial_forward(mesh, model, *S.shard_spatial(mesh, frames), stats=stats)
+    return {"x_hat": S.gather_rows(mesh, out["x_hat"]).cpu(), "sizes": out["sizes"].cpu(),
+            "launches": warp.warp_kernel.launches, "warps": stats.warps}
+
+
 CASES = {"helpers": case_helpers, "coding": case_coding, "train": case_train,
-         "coding_card": case_coding_card}
+         "coding_card": case_coding_card, "spatial_ops": case_spatial_ops,
+         "spatial_lhbdc": case_spatial_lhbdc, "spatial_card": case_spatial_card}
 
 
 def main(case: str, rank: int, world: int, tmp_dir: str) -> None:

@@ -43,6 +43,15 @@
 // threads store consecutive addresses. No shared memory, no atomics: every
 // output element is written once by one thread.
 //
+// Rows of the output: the kernel writes output rows [y0, y0 + H_out) of the
+// warp of a reference of H rows (H_out = H, y0 = 0 for the whole frame). The
+// flow and the output hold just those rows; the sample coordinates, the
+// border clamp and the lhbdc H/(H-1) scale are the reference's. A rank of an
+// H-sharded forward (tpuvc_torch.parallel.spatial) warps its own rows of a
+// gathered reference this way. Each output pixel's arithmetic is the same
+// as in the whole-frame launch, so its rows equal those of the whole frame
+// bit for bit.
+//
 // Every coordinate, weight and sum is computed with explicitly rounded
 // intrinsics in the plain version's order (tpuvc_torch.ops.warp.warp_plain),
 // and the file is built with --fmad=false, so no multiply-add is contracted
@@ -71,21 +80,23 @@ __device__ __forceinline__ void load(const float* p, float (&v)[V]) {
 }
 
 // Block (lanes, pixels of a row, rows); grid (ceil(W / pixels),
-// ceil(H / rows), B). V channels per load.
+// ceil(H_out / rows), B). V channels per load. y is the output row, row0 + y
+// the reference's.
 template <int V>
 __global__ void __launch_bounds__(THREADS)
 warp_bilinear_nhwc_kernel(const float* __restrict__ img,
                           const float* __restrict__ flow,
                           float* __restrict__ out, int H, int W, int C,
-                          float sx, float sy, int zero, int flow2) {
+                          float sx, float sy, int zero, int flow2, int row0,
+                          int H_out) {
   const int x = blockIdx.x * blockDim.y + threadIdx.y;
   const int y = blockIdx.y * blockDim.z + threadIdx.z;
-  if (x >= W || y >= H) return;
+  if (x >= W || y >= H_out) return;
   const int b = blockIdx.z;
   const int off = zero ? 1 : 0;  // ring offset
   const int Hs = H + 2 * off;    // sampled frame size
   const int Ws = W + 2 * off;
-  const int p = (b * H + y) * W + x;  // the wrapper keeps B*H*W*max(C, 2) < 2^31
+  const int p = (b * H_out + y) * W + x;  // the wrapper keeps B*H*W*max(C, 2) < 2^31
   float dx, dy;
   if (flow2) {
     const float2 f = __ldg(reinterpret_cast<const float2*>(flow) + p);
@@ -101,7 +112,7 @@ warp_bilinear_nhwc_kernel(const float* __restrict__ img,
   }
 
   float xs = __fadd_rn(static_cast<float>(x + off), __fmul_rn(dx, sx));
-  float ys = __fadd_rn(static_cast<float>(y + off), __fmul_rn(dy, sy));
+  float ys = __fadd_rn(static_cast<float>(row0 + y + off), __fmul_rn(dy, sy));
   xs = fminf(fmaxf(xs, 0.0f), static_cast<float>(Ws - 1));
   ys = fminf(fmaxf(ys, 0.0f), static_cast<float>(Hs - 1));
   const float x0 = floorf(xs);
@@ -160,14 +171,15 @@ warp_bilinear_nhwc_kernel(const float* __restrict__ img,
 
 extern "C" {
 
-// img (B,H,W,C), flow (B,H,W,2) and out (B,H,W,C): contiguous float32 on the
-// current device, B and H at most 65535. Launches on `stream` (a
-// cudaStream_t) and returns the cudaGetLastError() code of the launch (0 on
-// success).
+// img (B,H,W,C), flow (B,H_out,W,2) and out (B,H_out,W,C): contiguous
+// float32 on the current device, B and H at most 65535, output rows
+// [y0, y0 + H_out) within [0, H). Launches on `stream` (a cudaStream_t) and
+// returns the cudaGetLastError() code of the launch (0 on success).
 int tpuvc_warp_bilinear_nhwc(const void* img, const void* flow, void* out,
                              int B, int H, int W, int C, float sx, float sy,
-                             int zero, void* stream) {
-  if (static_cast<int64_t>(B) * H * W * C == 0) return 0;
+                             int zero, int y0, int H_out, void* stream) {
+  if (y0 < 0 || H_out < 0 || y0 + H_out > H) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<int64_t>(B) * H_out * W * C == 0) return 0;
   if (B > 65535 || H > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
@@ -180,15 +192,17 @@ int tpuvc_warp_bilinear_nhwc(const void* img, const void* flow, void* out,
   const int pixels = square ? SQUARE : THREADS / lanes;
   const int rows = square ? SQUARE : 1;
   const dim3 block(lanes, pixels, rows);
-  const dim3 grid((W + pixels - 1) / pixels, (H + rows - 1) / rows, B);
+  const dim3 grid((W + pixels - 1) / pixels, (H_out + rows - 1) / rows, B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* i = static_cast<const float*>(img);
   const float* f = static_cast<const float*>(flow);
   float* o = static_cast<float*>(out);
   if (vec) {
-    warp_bilinear_nhwc_kernel<4><<<grid, block, 0, s>>>(i, f, o, H, W, C, sx, sy, zero, flow2);
+    warp_bilinear_nhwc_kernel<4><<<grid, block, 0, s>>>(i, f, o, H, W, C, sx, sy, zero, flow2,
+                                                     y0, H_out);
   } else {
-    warp_bilinear_nhwc_kernel<1><<<grid, block, 0, s>>>(i, f, o, H, W, C, sx, sy, zero, flow2);
+    warp_bilinear_nhwc_kernel<1><<<grid, block, 0, s>>>(i, f, o, H, W, C, sx, sy, zero, flow2,
+                                                     y0, H_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,12 @@ Pallas band kernel. On a CPU tensor it runs :func:`warp_plain`, the PyTorch
 transcription of tpuvc's XLA formulation (``warp_pallas._warp_xla``). Any
 other device raises: nothing falls back to the plain version quietly.
 Gradients on CUDA go through autograd of the plain version.
+
+``y0`` (every entry point's last argument, 0 by default) warps only rows
+``[y0, y0 + H_out)`` of the output, ``H_out`` being the flow's height: the
+flow holds just those rows, the reference all of its H rows, and each row
+equals that row of the whole-frame warp bit for bit (a rank of an H-sharded
+forward, tpuvc_torch.parallel.spatial).
 """
 
 from __future__ import annotations
@@ -43,12 +49,14 @@ def _scales(compat: str, H: int, W: int) -> tuple[float, float, bool]:
     raise ValueError(f"unknown warp compat mode: {compat}")
 
 
-def _warp_plain_core(img, flow, sx: float, sy: float) -> torch.Tensor:
+def _warp_plain_core(img, flow, sx: float, sy: float, y0: int = 0) -> torch.Tensor:
     """Gather formulation of tpuvc's ``_warp_xla``, op for op (border clamp,
-    with ``jnp.clip``'s gradient at the border)."""
+    with ``jnp.clip``'s gradient at the border), for output rows
+    ``[y0, y0 + flow rows)``."""
     B, H, W, C = img.shape
+    Ho = flow.shape[1]
     xs = torch.arange(W, dtype=flow.dtype, device=flow.device)
-    ys = torch.arange(H, dtype=flow.dtype, device=flow.device)
+    ys = torch.arange(y0, y0 + Ho, dtype=flow.dtype, device=flow.device)
     x = clip(xs[None, None, :] + flow[..., 0] * sx, 0.0, W - 1.0)
     y = clip(ys[None, :, None] + flow[..., 1] * sy, 0.0, H - 1.0)
     x0 = torch.floor(x)
@@ -62,8 +70,8 @@ def _warp_plain_core(img, flow, sx: float, sy: float) -> torch.Tensor:
     flat = img.reshape(B, H * W, C)
 
     def gather(yi, xi):
-        idx = (yi * W + xi).reshape(B, H * W, 1).expand(B, H * W, C)
-        return torch.gather(flat, 1, idx).reshape(B, H, W, C)
+        idx = (yi * W + xi).reshape(B, Ho * W, 1).expand(B, Ho * W, C)
+        return torch.gather(flat, 1, idx).reshape(B, Ho, W, C)
 
     w00 = ((1.0 - fy) * (1.0 - fx))[..., None]
     w01 = ((1.0 - fy) * fx)[..., None]
@@ -77,23 +85,34 @@ def _warp_plain_core(img, flow, sx: float, sy: float) -> torch.Tensor:
     )
 
 
-def _warp_plain_sampled(img, flow, sx: float, sy: float, zero: bool):
+def _warp_plain_sampled(img, flow, sx: float, sy: float, zero: bool, y0: int = 0):
     """What the kernel computes, in plain PyTorch: with ``zero``, an exact
-    warp over the frame ringed by zeros (the flow already shifted)."""
+    warp over the frame ringed by zeros (the flow already shifted; output
+    row y0 + j lies at row y0 + j + 1 of the ringed frame)."""
     if not zero:
-        return _warp_plain_core(img, flow, sx, sy)
+        return _warp_plain_core(img, flow, sx, sy, y0)
+    if flow.shape[1] == 0:  # no rows: nothing to ring
+        return img.new_empty((img.shape[0], 0, *img.shape[2:]))
     imgp = F.pad(img, (0, 0, 1, 1, 1, 1))
     flowp = F.pad(flow.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate")
-    return _warp_plain_core(imgp, flowp.permute(0, 2, 3, 1), sx, sy)[:, 1:-1, 1:-1]
+    return _warp_plain_core(imgp, flowp.permute(0, 2, 3, 1), sx, sy, y0)[:, 1:-1, 1:-1]
+
+
+def _check_rows(img, flow, y0: int) -> None:
+    B, H, W, _ = img.shape
+    Ho = flow.shape[1] if flow.dim() == 4 else -1
+    if tuple(flow.shape) != (B, Ho, W, 2) or not 0 <= y0 <= y0 + Ho <= H:
+        raise ValueError(f"flow {tuple(flow.shape)} at row {y0} does not fit a warp of "
+                         f"{tuple(img.shape)}: (B, H_out, W, 2) with 0 <= y0, y0 + H_out <= H")
 
 
 def warp_plain(img: torch.Tensor, flow: torch.Tensor,
-               compat: str = "exact") -> torch.Tensor:
+               compat: str = "exact", y0: int = 0) -> torch.Tensor:
     """Plain PyTorch warp on any device; the kernel's reference."""
+    _check_rows(img, flow, y0)
     B, H, W, C = img.shape
-    assert tuple(flow.shape) == (B, H, W, 2), (img.shape, flow.shape)
     sx, sy, zero = _scales(compat, H, W)
-    return _warp_plain_sampled(img, flow - 0.5 if zero else flow, sx, sy, zero)
+    return _warp_plain_sampled(img, flow - 0.5 if zero else flow, sx, sy, zero, y0)
 
 
 def _get_lib():
@@ -109,7 +128,8 @@ def _get_lib():
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         _lib = lib
     return _lib
@@ -121,12 +141,13 @@ def build_kernel() -> None:
 
 
 def warp_kernel(img: torch.Tensor, flow: torch.Tensor, sx: float = 1.0,
-                sy: float = 1.0, zero: bool = False) -> torch.Tensor:
-    """Launch the CUDA warp kernel: img (B,H,W,C), flow (B,H,W,2), both
-    contiguous float32 on one CUDA device. ``zero`` is the flexrate mode:
-    the flow shifted by -0.5 inside the kernel, then sampled over a ring of
-    zeros (coordinates of the ringed frame) instead of clamped to the
-    border. Raises on anything the kernel does not take."""
+                sy: float = 1.0, zero: bool = False, y0: int = 0) -> torch.Tensor:
+    """Launch the CUDA warp kernel: img (B,H,W,C), flow (B,H_out,W,2), both
+    contiguous float32 on one CUDA device; output rows [y0, y0 + H_out) of
+    the warp, (B,H_out,W,C). ``zero`` is the flexrate mode: the flow
+    shifted by -0.5 inside the kernel, then sampled over a ring of zeros
+    (coordinates of the ringed frame) instead of clamped to the border.
+    Raises on anything the kernel does not take."""
     if img.device.type != "cuda" or flow.device != img.device:
         raise ValueError(
             f"warp_kernel needs img and flow on one CUDA device, got "
@@ -137,20 +158,22 @@ def warp_kernel(img: torch.Tensor, flow: torch.Tensor, sx: float = 1.0,
     if img.dim() != 4 or flow.dim() != 4:
         raise ValueError(f"warp_kernel takes NHWC, got {tuple(img.shape)}")
     B, H, W, C = img.shape
-    if tuple(flow.shape) != (B, H, W, 2):
-        raise ValueError(f"flow shape {tuple(flow.shape)} != {(B, H, W, 2)}")
+    _check_rows(img, flow, y0)
     if not (img.is_contiguous() and flow.is_contiguous()):
         raise ValueError("warp_kernel takes contiguous img and flow")
     if B * H * W * max(C, 2) >= 2**31:
         raise ValueError(f"warp_kernel indexes in int32; {tuple(img.shape)} is too large")
     if max(B, H) > 65535:
         raise ValueError(f"warp_kernel launches over B and H; {(B, H)} exceeds 65535")
-    out = torch.empty_like(img)
+    Ho = flow.shape[1]
+    out = img.new_empty((B, Ho, W, C))
+    if out.numel() == 0:  # nothing to launch
+        return out
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         rc = _get_lib().tpuvc_warp_bilinear_nhwc(
             img.data_ptr(), flow.data_ptr(), out.data_ptr(),
-            B, H, W, C, sx, sy, int(zero), stream,
+            B, H, W, C, sx, sy, int(zero), y0, Ho, stream,
         )
     if rc != 0:
         raise RuntimeError(f"warp kernel launch failed: cudaError {rc}")
@@ -166,41 +189,44 @@ class _WarpKernelFn(torch.autograd.Function):
     """Kernel forward; backward by autograd of the plain formulation."""
 
     @staticmethod
-    def forward(ctx, img, flow, sx, sy, zero):
+    def forward(ctx, img, flow, sx, sy, zero, y0):
         ctx.save_for_backward(img, flow)
-        ctx.args = (sx, sy, zero)
-        return warp_kernel(img, flow, sx, sy, zero)
+        ctx.args = (sx, sy, zero, y0)
+        return warp_kernel(img, flow, sx, sy, zero, y0)
 
     @staticmethod
     def backward(ctx, grad):
         img, flow = ctx.saved_tensors
-        sx, sy, zero = ctx.args
+        sx, sy, zero, y0 = ctx.args
         need_img, need_flow = ctx.needs_input_grad[:2]
         with torch.enable_grad():
             i = img.detach().requires_grad_(need_img)
             f = flow.detach().requires_grad_(need_flow)
-            out = _warp_plain_sampled(i, f - 0.5 if zero else f, sx, sy, zero)
+            out = _warp_plain_sampled(i, f - 0.5 if zero else f, sx, sy, zero, y0)
             inputs = [t for t in (i, f) if t.requires_grad]
             grads = iter(torch.autograd.grad(out, inputs, grad))
         gi = next(grads) if need_img else None
         gf = next(grads) if need_flow else None
-        return gi, gf, None, None, None
+        return gi, gf, None, None, None, None
 
 
-def warp(img: torch.Tensor, flow: torch.Tensor, compat: str = "exact") -> torch.Tensor:
-    """Backward-warp ``img`` (B,H,W,C) by ``flow`` (B,H,W,2: dx, dy).
+def warp(img: torch.Tensor, flow: torch.Tensor, compat: str = "exact",
+         y0: int = 0) -> torch.Tensor:
+    """Backward-warp ``img`` (B,H,W,C) by ``flow`` (B,H,W,2: dx, dy), or
+    only output rows ``[y0, y0 + H_out)`` by a flow of those rows
+    (B,H_out,W,2).
 
     CPU tensors take :func:`warp_plain`; CUDA tensors the kernel.
     """
     B, H, W, C = img.shape
-    assert tuple(flow.shape) == (B, H, W, 2), (img.shape, flow.shape)
     if img.device.type == "cpu":
-        return warp_plain(img, flow, compat)
+        return warp_plain(img, flow, compat, y0)
+    _check_rows(img, flow, y0)
     sx, sy, zero = _scales(compat, H, W)
     img, flow = img.contiguous(), flow.contiguous()
     if torch.is_grad_enabled() and (img.requires_grad or flow.requires_grad):
-        return _WarpKernelFn.apply(img, flow, sx, sy, zero)
-    return warp_kernel(img, flow, sx, sy, zero)
+        return _WarpKernelFn.apply(img, flow, sx, sy, zero, y0)
+    return warp_kernel(img, flow, sx, sy, zero, y0)
 
 
 def warp_and_blend(img_fw: torch.Tensor, flow_fw: torch.Tensor, img_bw: torch.Tensor,
@@ -221,8 +247,8 @@ class _CallableModule(types.ModuleType):
     :func:`warp`, so ``from tpuvc_torch.ops import warp; warp(img, flow)``
     works as it does in tpuvc."""
 
-    def __call__(self, img, flow, compat: str = "exact"):
-        return warp(img, flow, compat)
+    def __call__(self, img, flow, compat: str = "exact", y0: int = 0):
+        return warp(img, flow, compat, y0)
 
 
 sys.modules[__name__].__class__ = _CallableModule

@@ -20,8 +20,10 @@ that share a card must name gloo (NCCL refuses two ranks on one GPU, and
 that error is left to surface). gloo moves CUDA tensors through host copies
 made here, one path for every collective.
 
-``shard_spatial`` (H sharded across devices, with XLA's halo exchanges) is
-not ported: ROADMAP.md A16.7.
+``shard_spatial`` (H sharded across devices) lives in
+:mod:`tpuvc_torch.parallel.spatial`: explicit row fetches between the ranks
+take the place of the halo exchanges XLA's partitioner inserts, and LHBDC's
+forward runs there with its rows sharded (``spatial_forward``).
 """
 
 from __future__ import annotations

@@ -1,0 +1,581 @@
+"""Spatial sharding: the rows of NHWC frames split across the ranks of a mesh
+(port of tpuvc.parallel.mesh.shard_spatial and of the H-sharded LHBDC
+forward tpuvc's tests run through it).
+
+tpuvc places frames with H sharded over its 1-D mesh and XLA's SPMD
+partitioner inserts a halo exchange for every conv and a collective for
+every global op. The port runs one process per device (parallel/mesh.py)
+and has no partitioner, so each op that mixes rows fetches the rows it needs
+from the ranks that own them, here, explicitly:
+
+- Layout. :func:`rows_of` is the one ownership rule: rank r owns rows
+  ``[r*c, min(H, (r+1)*c))`` of a tensor of H rows, ``c = ceil(H/n)``. At
+  the entry this is XLA's placement (``shard_spatial`` refuses an H the
+  mesh does not divide); at the deep levels of a codec a rank may own
+  fewer rows than others, or none. Every sharded tensor is canonical under
+  the rule, so every rank knows every rank's rows without a collective. A
+  sharded tensor is a :class:`Rows`: this rank's rows and the global H.
+- Transport. :func:`fetch_rows` is the one communication primitive: it
+  gathers any list of global rows from their owners with paired send/recv
+  (ranks in ascending order, one message each way a pair), as far across
+  the ranks as the list reaches. :func:`gather_rows` fetches all of them
+  (the warps' references); :func:`all_reduce_sum` adds the bits.
+- Ops (:class:`Spatial`). Each follows one recipe: work out which input
+  rows its canonical output rows need, fetch them, run the port's own op
+  on that window, crop. Pointwise and per-pixel ops (activations, GDN, the
+  entropy models in ``dequantize`` mode, channel concat and chunk) run on
+  the local rows as they are.
+- The warp. A rank gathers the whole reference and warps only its own
+  output rows: ``ops.warp.warp(..., y0=first row)``, the CUDA kernel on a
+  card, each row bit for bit that row of the whole-frame warp.
+- Module forwards, in the order of each module's own ``forward``, on the
+  module's own parameters: SPyNet, its BasicBlock, MaskUNet,
+  MeanScaleHyperprior and LHBDC (:func:`spatial_forward`).
+
+Ranks that share a card use gloo, which moves CUDA tensors through host
+copies; NCCL moves them where each rank has its own card. The forward is
+inference only (``mode="dequantize"``): no gradient crosses a fetch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from tpuvc_torch.entropy.emath import likelihood_to_bits, per_sample_bits
+from tpuvc_torch.models import layers as L
+from tpuvc_torch.models.spynet import preprocess
+from tpuvc_torch.models.unet import _maxpool2
+from tpuvc_torch.ops import warp as warp_ops
+from tpuvc_torch.ops.pad import _pad_index
+from tpuvc_torch.ops.resample import _resize_matrix, _resize_matrix_on, avg_pool2d, pixel_shuffle
+from tpuvc_torch.parallel.mesh import Mesh, _staged, _tree_map
+
+# -- layout -------------------------------------------------------------------
+
+
+def rows_of(H: int, n: int, r: int) -> tuple[int, int]:
+    """The rows ``[start, stop)`` rank ``r`` of ``n`` owns of a tensor of
+    ``H`` rows: ``[r*c, min(H, (r+1)*c))`` with ``c = ceil(H/n)``; empty
+    (``start == stop == H``) where ``r*c >= H``."""
+    c = -(-H // n)
+    return min(H, r * c), min(H, (r + 1) * c)
+
+
+@dataclasses.dataclass(frozen=True)
+class Rows:
+    """This rank's rows ``x`` (B, h, W, C) of an NHWC tensor of ``H`` rows
+    (the rows :func:`rows_of` gives it). A dataclass, not a tensor
+    subclass: a torch op on a subclass would drop ``H`` without a word."""
+
+    x: torch.Tensor
+    H: int
+
+    def map(self, fn, *others: "Rows") -> "Rows":
+        """``fn`` of the local rows (and of ``others``' rows of the same H):
+        for ops that do not mix rows."""
+        for o in others:
+            if o.H != self.H:
+                raise ValueError(f"rows of H={o.H} meet rows of H={self.H}")
+        return Rows(fn(self.x, *(o.x for o in others)), self.H)
+
+
+def cat(parts: list[Rows], dim: int) -> Rows:
+    """torch.cat of the local rows along the batch (0) or channel (-1) dim."""
+    if dim not in (0, -1, 3):
+        raise ValueError("rows are concatenated along the batch or channel dim only")
+    return parts[0].map(lambda *xs: torch.cat(xs, dim=dim), *parts[1:])
+
+
+def take_rows(mesh: Mesh, x: torch.Tensor) -> Rows:
+    """This rank's rows of the whole NHWC tensor ``x`` under
+    :func:`rows_of`, at any H."""
+    if x.dim() != 4:
+        raise ValueError(f"rows are taken of NHWC tensors, got {tuple(x.shape)}")
+    lo, hi = rows_of(x.shape[1], mesh.size, mesh.rank)
+    return Rows(x[:, lo:hi].contiguous(), x.shape[1])
+
+
+def shard_spatial(mesh: Mesh, tree):
+    """This rank's rows of each NHWC tensor in ``tree``, as :class:`Rows`
+    (tpuvc's ``shard_spatial``: H sharded over the mesh). Raises where the
+    mesh size does not divide H, as JAX's placement does."""
+    def take(x):
+        if x.dim() == 4 and x.shape[1] % mesh.size:
+            raise ValueError(f"the H dimension of {tuple(x.shape)} should be divisible by "
+                             f"{mesh.size}, but it is equal to {x.shape[1]}")
+        return take_rows(mesh, x)
+
+    return _tree_map(take, tree)
+
+
+# -- transport ------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SpatialStats:
+    """What one rank's sharded ops moved and warped: the bytes it received
+    from other ranks over its exchanges with them (``fetches``), each warp
+    as (y0, rows, reference rows, batch, channels), and the warp samples
+    whose row lies in another rank's rows out of all its samples."""
+
+    bytes_fetched: int = 0
+    fetches: int = 0
+    warps: list = dataclasses.field(default_factory=list)
+    samples: int = 0
+    samples_elsewhere: int = 0
+
+
+def _owner(rows: np.ndarray, H: int, n: int) -> np.ndarray:
+    return rows // -(-H // n)
+
+
+def _wire(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` as it travels: through host memory and as float32 on gloo
+    (which has no 16-bit floats; the widening is exact)."""
+    if mesh.backend == "gloo":
+        t = t.cpu()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.float()
+    return t.contiguous()
+
+
+def _wire_buffer(mesh: Mesh, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """A buffer for ``rows`` rows of ``x`` as they travel (:func:`_wire`)."""
+    shape = (x.shape[0], rows, *x.shape[2:])
+    if mesh.backend != "gloo":
+        return x.new_empty(shape)
+    wide = x.dtype in (torch.bfloat16, torch.float16)
+    return torch.empty(shape, dtype=torch.float32 if wide else x.dtype)
+
+
+def fetch_rows(mesh: Mesh, shard: Rows, need, stats: SpatialStats | None = None,
+               tag: int = 0) -> torch.Tensor:
+    """The global rows ``need(mesh.rank)`` of ``shard``, in that order, as a
+    (B, len, W, C) tensor on this rank.
+
+    ``need(r)`` lists the rows rank ``r`` asks for (any order, repeats
+    allowed, each in ``[0, H)``), a pure function of ``r`` that every rank
+    evaluates alike, so each knows what to send to whom without a
+    collective. Each rank then sends every peer, in ascending rank order,
+    one message of the rows it owns of that peer's list, and receives one
+    from each peer it needs rows from (``tag`` names the exchange)."""
+    H, n, me = shard.H, mesh.size, mesh.rank
+    lo, _ = rows_of(H, n, me)
+    x = shard.x
+    mine = np.asarray(need(me), dtype=np.int64).reshape(-1)
+    if mine.size and (mine.min() < 0 or mine.max() >= H):
+        raise ValueError(f"rows outside [0, {H}) asked for")
+    out = x.new_empty((x.shape[0], mine.size, *x.shape[2:]))
+    owners = _owner(mine, H, n)
+
+    def index(a):
+        return torch.as_tensor(a, dtype=torch.long, device=x.device)
+
+    here = np.nonzero(owners == me)[0]
+    if here.size:
+        out.index_copy_(1, index(here), x.index_select(1, index(mine[here] - lo)))
+    if n == 1 or mesh.group is None:
+        return out
+    ops, recvs = [], []
+    for peer in range(n):
+        if peer == me:
+            continue
+        theirs = np.asarray(need(peer), dtype=np.int64).reshape(-1)
+        send = theirs[_owner(theirs, H, n) == me]
+        if send.size:
+            t = _wire(mesh, x.index_select(1, index(send - lo)))
+            ops.append(dist.P2POp(dist.isend, t, peer, group=mesh.group, tag=tag))
+        get = np.nonzero(owners == peer)[0]
+        if get.size:
+            buf = _wire_buffer(mesh, x, get.size)
+            ops.append(dist.P2POp(dist.irecv, buf, peer, group=mesh.group, tag=tag))
+            recvs.append((get, buf))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for get, buf in recvs:
+        out.index_copy_(1, index(get), buf.to(x.device, x.dtype))
+        if stats is not None:
+            stats.bytes_fetched += buf.numel() * buf.element_size()
+    if stats is not None:
+        stats.fetches += 1
+    return out
+
+
+def gather_rows(mesh: Mesh, shard: Rows, stats: SpatialStats | None = None) -> torch.Tensor:
+    """The whole (B, H, W, C) tensor on every rank."""
+    return fetch_rows(mesh, shard, lambda r: np.arange(shard.H), stats)
+
+
+def all_reduce_sum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the ranks."""
+    if mesh.group is None:
+        return x
+
+    def reduce(ts):
+        dist.all_reduce(ts[0], op=dist.ReduceOp.SUM, group=mesh.group)
+        return ts
+
+    return _staged(mesh, reduce, [x.clone()])[0]
+
+
+# -- sharded ops ------------------------------------------------------------------
+
+
+def _span(a: int, b: int, lo: int, hi: int, H: int) -> np.ndarray:
+    """Rows ``[lo, hi)`` clipped to ``[0, H)``; none for an empty output
+    ``[a, b)``."""
+    if a >= b:
+        return np.zeros(0, dtype=np.int64)
+    return np.arange(max(lo, 0), min(hi, H))
+
+
+class Spatial:
+    """The sharded ops of this rank over ``mesh``; ``stats`` (a
+    :class:`SpatialStats`) adds up what they fetch and warp."""
+
+    def __init__(self, mesh: Mesh, stats: SpatialStats | None = None):
+        self.mesh, self.stats = mesh, stats
+        self._tag = 0
+
+    def rows(self, H: int, r: int | None = None) -> tuple[int, int]:
+        return rows_of(H, self.mesh.size, self.mesh.rank if r is None else r)
+
+    def fetch(self, x: Rows, need) -> torch.Tensor:
+        self._tag = (self._tag + 1) % 2**15
+        return fetch_rows(self.mesh, x, need, self.stats, self._tag)
+
+    def _windowed(self, x: Rows, H_out: int, span, op) -> Rows:
+        """The recipe: output rows ``[a, b)`` of ``H_out`` need input rows
+        ``span(a, b)``; ``op(window, a, b)`` computes them."""
+        def need(r):
+            a, b = self.rows(H_out, r)
+            return span(a, b)
+
+        a, b = self.rows(H_out)
+        return Rows(op(self.fetch(x, need), a, b), H_out)
+
+    # convolutions -------------------------------------------------------------
+
+    def conv(self, x: Rows, conv: L.Conv) -> Rows:
+        """``layers.Conv`` (``conv2d_nhwc``, pad k//2) on its own
+        parameters: output rows ``[a, b)`` read input rows
+        ``[a*s - p, (b-1)*s - p + k)``, zeros outside the frame."""
+        weight, bias, stride = conv.weight, conv.bias, conv.stride
+        k = weight.shape[-1]
+        p = k // 2
+        H, W = x.H, x.x.shape[2]
+        H_out = (H + 2 * p - k) // stride + 1
+        W_out = (W + 2 * p - k) // stride + 1
+
+        def span(a, b):
+            return _span(a, b, a * stride - p, (b - 1) * stride - p + k, H)
+
+        def op(win, a, b):
+            if a >= b:
+                return win.new_zeros((win.shape[0], 0, W_out, weight.shape[0]),
+                                     dtype=torch.float32)
+            top = a * stride - p
+            bottom = (b - 1) * stride - p + k
+            win = F.pad(win, (0, 0, 0, 0, max(0, -top), max(0, bottom - H)))
+            return L.conv2d_nhwc(win, weight, bias, stride, (0, p))
+
+        return self._windowed(x, H_out, span, op)
+
+    def pixel_shuffle(self, x: Rows, r: int) -> Rows:
+        """Output row y is input row y // r."""
+        def op(win, a, b):
+            return pixel_shuffle(win, r)[:, a - (a // r) * r:][:, :b - a]
+
+        return self._windowed(x, x.H * r, lambda a, b: _span(a, b, a // r, (b - 1) // r + 1, x.H),
+                              op)
+
+    def pool(self, x: Rows, k: int, fn=None) -> Rows:
+        """Non-overlapping k x k pooling (``avg_pool2d``, or ``fn``):
+        output rows ``[a, b)`` read input rows ``[a*k, b*k)``."""
+        if x.H % k:
+            raise ValueError(f"H={x.H} does not divide by the pool {k}")
+        fn = fn or (lambda t: avg_pool2d(t, k))
+        return self._windowed(x, x.H // k, lambda a, b: _span(a, b, a * k, b * k, x.H),
+                              lambda win, a, b: fn(win))
+
+    def max_pool2(self, x: Rows) -> Rows:
+        return self.pool(x, 2, _maxpool2)
+
+    # resampling ------------------------------------------------------------------
+
+    def resize(self, x: Rows, out_h: int, out_w: int, align_corners: bool = False) -> Rows:
+        """``resample.bilinear_resize`` for the global H: output rows
+        ``[a, b)`` read the nonzero band of the interpolation matrix's rows
+        ``[a, b)``, the columns are resized on the local rows."""
+        H, W = x.H, x.x.shape[2]
+        if H == out_h and W == out_w:
+            return x
+        m = _resize_matrix(H, out_h, align_corners)
+
+        def span(a, b):
+            if a >= b:
+                return _span(a, b, 0, 0, H)
+            cols = np.nonzero(m[a:b].any(axis=0))[0]
+            return np.arange(cols[0], cols[-1] + 1)
+
+        def op(win, a, b):
+            if a >= b:
+                return win.new_zeros((win.shape[0], 0, out_w, win.shape[3]))
+            c0 = int(np.nonzero(m[a:b].any(axis=0))[0][0])
+            mh = _resize_matrix_on(H, out_h, align_corners, win.device, win.dtype)
+            mw = _resize_matrix_on(W, out_w, align_corners, win.device, win.dtype)
+            y = torch.einsum("oh,...hwc->...owc", mh[a:b, c0:c0 + win.shape[1]], win)
+            return torch.einsum("pw,...hwc->...hpc", mw, y)
+
+        return self._windowed(x, out_h, span, op)
+
+    def upsample2x_flow(self, flow: Rows) -> Rows:
+        """``resample.upsample2x_flow``."""
+        up = self.resize(flow, 2 * flow.H, 2 * flow.x.shape[2], align_corners=True)
+        return up.map(lambda t: t * 2.0)
+
+    def upsample_flow(self, flow: Rows, factor: int) -> Rows:
+        """``resample.upsample_flow``."""
+        return self.resize(flow, factor * flow.H, factor * flow.x.shape[2])
+
+    def up2(self, x: Rows) -> Rows:
+        """``unet._up2``."""
+        return self.resize(x, 2 * x.H, 2 * x.x.shape[2])
+
+    # padding ------------------------------------------------------------------
+
+    def pad_to_multiple(self, x: Rows, multiple: int = 64, mode: str = "reflect"):
+        """``pad.pad_to_multiple`` (``reflect`` or ``edge``): output row i
+        of H + ph is input row ``_pad_index(H, ph)[i]``, which a reflected
+        pad takes from deep inside the frame, from other ranks' rows.
+        Returns (padded rows, (H, W))."""
+        h, w = x.H, x.x.shape[2]
+        ph = (multiple - h % multiple) % multiple
+        pw = (multiple - w % multiple) % multiple
+        if ph:
+            idx = _pad_index(h, ph, mode, "cpu").numpy()
+            x = self._windowed(x, h + ph, lambda a, b: idx[a:b], lambda win, a, b: win)
+        if pw:
+            x = x.map(lambda t: t.index_select(-2, _pad_index(w, pw, mode, t.device)))
+        return x, (h, w)
+
+    def unpad(self, x: Rows, size: tuple[int, int]) -> Rows:
+        """``pad.unpad``: rows ``[0, h)`` re-sharded over h, columns cut."""
+        h, w = size
+        if h != x.H:
+            x = self._windowed(x, h, lambda a, b: np.arange(a, b), lambda win, a, b: win)
+        return x.map(lambda t: t[:, :, :w])
+
+    # the warp ------------------------------------------------------------------
+
+    def warp(self, img: Rows, flow: Rows, compat: str = "exact") -> Rows:
+        """``ops.warp.warp`` of this rank's output rows: the whole reference
+        gathered, the flow's own rows, ``y0`` the first of them. On CUDA
+        tensors the kernel launches (or raises); a rank without rows
+        launches nothing."""
+        if img.H != flow.H:
+            raise ValueError(f"a reference of H={img.H} warped by a flow of H={flow.H}")
+        ref = gather_rows(self.mesh, img, self.stats)
+        y0, y1 = self.rows(img.H)
+        if y0 == y1:
+            return Rows(ref[:, :0], img.H)
+        if self.stats is not None:
+            self._count_samples(flow.x, y0, y1, ref.shape, compat)
+        return Rows(warp_ops.warp(ref, flow.x, compat, y0), img.H)
+
+    def _count_samples(self, flow, y0: int, y1: int, ref_shape, compat: str) -> None:
+        """Add the warp of rows [y0, y1) to the stats, and how many of its
+        sample points' rows lie outside them."""
+        B, H, W, C = ref_shape
+        _, sy, zero = warp_ops._scales(compat, H, W)
+        dy = flow[..., 1] - 0.5 if zero else flow[..., 1]
+        rows = torch.arange(y0, y1, dtype=flow.dtype, device=flow.device)[None, :, None]
+        y = torch.floor(torch.clamp(rows + dy * sy, 0.0, H - 1.0))
+        s = self.stats
+        s.warps.append((y0, y1 - y0, H, B, C))
+        s.samples += y.numel()
+        s.samples_elsewhere += int(((y < y0) | (y >= y1)).sum())
+
+    # bits ------------------------------------------------------------------
+
+    def bits(self, liks: list[torch.Tensor]) -> tuple[list, list]:
+        """(``likelihood_to_bits`` of each likelihood tensor, its
+        ``per_sample_bits``) over all ranks: the local sums, then one
+        all-reduce."""
+        local = torch.cat([torch.stack([likelihood_to_bits(p) for p in liks])]
+                          + [per_sample_bits(p) for p in liks])
+        total = all_reduce_sum(self.mesh, local)
+        n = len(liks)
+        b = liks[0].shape[0]
+        return list(total[:n]), [total[n + i * b:n + (i + 1) * b] for i in range(n)]
+
+
+# -- module forwards ------------------------------------------------------------------
+
+
+def layer(sp: Spatial, module, x: Rows) -> Rows:
+    """One of the codec transforms' layers (models/layers.py), its
+    ``forward`` with the row-mixing ops sharded."""
+    if isinstance(module, L.Conv):
+        return sp.conv(x, module)
+    if isinstance(module, L.SubpelConv):
+        return sp.pixel_shuffle(sp.conv(x, module.Conv_0), module.r)
+    if isinstance(module, L.GDN):
+        return x.map(module)
+    if isinstance(module, L.ResidualBlock):
+        out = layer(sp, module.Conv_0, x).map(L.leaky_relu)
+        out = layer(sp, module.Conv_1, out).map(L.leaky_relu)
+        identity = layer(sp, module.Conv_2, x) if hasattr(module, "Conv_2") else x
+        return out.map(torch.add, identity)
+    if isinstance(module, L.ResidualBlockWithStride):
+        out = layer(sp, module.Conv_0, x).map(L.leaky_relu)
+        out = layer(sp, module.GDN_0, layer(sp, module.Conv_1, out))
+        skip = layer(sp, module.Conv_2, x) if hasattr(module, "Conv_2") else x
+        return out.map(torch.add, skip)
+    if isinstance(module, L.ResidualBlockUpsample):
+        out = layer(sp, module.SubpelConv_0, x).map(L.leaky_relu)
+        out = layer(sp, module.GDN_0, layer(sp, module.Conv_0, out))
+        return out.map(torch.add, layer(sp, module.SubpelConv_1, x))
+    raise TypeError(f"no sharded forward for {type(module).__name__}")
+
+
+def hyperprior_forward(sp: Spatial, m, x: Rows, mode: str = "dequantize") -> dict:
+    """``MeanScaleHyperprior.forward``: g_a, h_a, the bottleneck, h_s, the
+    Gaussian conditional and g_s, the entropy models on the local rows."""
+    y = x
+    for lay in m.g_a_layers:
+        y = layer(sp, lay, y)
+    z = y
+    for i, c in enumerate(m.h_a_convs):
+        z = layer(sp, c, z)
+        if i < len(m.h_a_convs) - 1:
+            z = z.map(L.leaky_relu)
+    z_hat, z_lik = m.entropy_bottleneck(z.x, mode)
+    h = layer(sp, m.h_s_conv0, Rows(z_hat, z.H)).map(L.leaky_relu)
+    h = layer(sp, m.h_s_up0, h).map(L.leaky_relu)
+    h = layer(sp, m.h_s_conv1, h).map(L.leaky_relu)
+    h = layer(sp, m.h_s_up1, h).map(L.leaky_relu)
+    scales, means = torch.chunk(layer(sp, m.h_s_out, h).x, 2, dim=-1)
+    y_hat, y_lik = m.gaussian(y.x, scales, means=means, mode=mode)
+    out = Rows(y_hat, y.H)
+    for lay in m.g_s_layers:
+        out = layer(sp, lay, out)
+    return {"x_hat": out, "likelihoods": {"y": y_lik, "z": z_lik}}
+
+
+def basic_block_forward(sp: Spatial, block, x: Rows) -> Rows:
+    """SPyNet's ``BasicBlock.forward``: five 7x7 convs, ReLU between."""
+    n = len(block.FEATS)
+    for i in range(n):
+        x = layer(sp, getattr(block, f"conv{i}"), x)
+        if i < n - 1:
+            x = x.map(F.relu)
+    return x
+
+
+def spynet_forward(sp: Spatial, net, first: Rows, second: Rows) -> Rows:
+    """``SPyNet.forward``: the pyramid's depth and the zero initial flow
+    follow the global shape; each level warps the gathered ``second``."""
+    firsts, seconds = [first.map(preprocess)], [second.map(preprocess)]
+    for _ in range(5):
+        if firsts[0].H > 32 or firsts[0].x.shape[2] > 32:
+            firsts.insert(0, sp.pool(firsts[0], 2))
+            seconds.insert(0, sp.pool(seconds[0], 2))
+    b, h0, w0 = first.x.shape[0], firsts[0].H, firsts[0].x.shape[2]
+    lo, hi = sp.rows(h0 // 2)
+    flow = Rows(torch.zeros((b, hi - lo, w0 // 2, 2), dtype=first.x.dtype,
+                            device=first.x.device), h0 // 2)
+    for level in range(len(firsts)):
+        up = sp.upsample2x_flow(flow)
+        if (up.H, up.x.shape[2]) != (firsts[level].H, firsts[level].x.shape[2]):
+            raise ValueError(f"pyramid level {level}: flow {up.H} rows, frame {firsts[level].H}")
+        warped = sp.warp(seconds[level], up, net.warp_compat)
+        inp = cat([firsts[level], warped, up], dim=-1)
+        block = getattr(net, f"basic_{min(level, net.num_levels - 1)}")
+        flow = basic_block_forward(sp, block, inp).map(torch.add, up)
+    return flow
+
+
+def mask_unet_forward(sp: Spatial, net, x: Rows) -> Rows:
+    """``MaskUNet.forward``."""
+    def conv_relu(name, t):
+        return layer(sp, getattr(net, name), t).map(F.relu)
+
+    c1 = conv_relu("Conv_0", x)
+    c2 = conv_relu("Conv_1", sp.max_pool2(c1))
+    c3 = conv_relu("Conv_2", sp.max_pool2(c2))
+    t = conv_relu("Conv_3", sp.max_pool2(c3))
+    t = conv_relu("Conv_4", cat([sp.up2(t), c3], dim=-1))
+    t = conv_relu("Conv_5", cat([sp.up2(t), c2], dim=-1))
+    t = conv_relu("Conv_6", cat([sp.up2(t), c1], dim=-1))
+    return layer(sp, net.Conv_7, t).map(torch.sigmoid)
+
+
+def _split(x: Rows, n: int) -> list[Rows]:
+    b = x.x.shape[0] // n
+    return [Rows(x.x[i * b:(i + 1) * b], x.H) for i in range(n)]
+
+
+@torch.no_grad()
+def spatial_forward(mesh: Mesh, model, x_before: Rows, x_current: Rows, x_after: Rows,
+                    mode: str = "dequantize", stats: SpatialStats | None = None) -> dict:
+    """``LHBDC.forward`` with the frames' rows sharded over ``mesh``
+    (inputs from :func:`shard_spatial`): this rank's rows of ``x_hat`` and
+    ``x_pred`` (:class:`Rows`), and ``bits``, ``bits_flow``,
+    ``bits_residual``, ``sizes`` and ``rate`` summed over the ranks.
+    ``stats`` (a :class:`SpatialStats`) records the fetches and warps."""
+    if mode != "dequantize":
+        raise ValueError(f"the spatial forward runs mode='dequantize', not {mode!r}")
+    sp = Spatial(mesh, stats)
+    B, H, W = x_current.x.shape[0], x_current.H, x_current.x.shape[2]
+    num_pixels = B * H * W
+
+    fs = _split(spynet_forward(sp, model.flownet,
+                               cat([x_before, x_after, x_current, x_current], dim=0),
+                               cat([x_after, x_before, x_before, x_after], dim=0)), 4)
+    flows, size = [], None
+    for f, halve in zip(fs, (True, True, False, False)):
+        g = sp.pool(f.map(lambda t: t / 2.0) if halve else f, 4)
+        size = size or (g.H, g.x.shape[2])
+        flows.append(sp.pad_to_multiple(g, 64)[0])
+    flow_ba, flow_ab, flow_cb, flow_ca = flows
+
+    diff_flow = flow_cb.map(torch.sub, flow_ab).map(
+        lambda a, b: torch.cat([a, b], dim=-1), flow_ca.map(torch.sub, flow_ba))
+    flow_out = hyperprior_forward(sp, model.mv_compressor, diff_flow, mode)
+    hat = flow_out["x_hat"]
+    flow_cb_hat = hat.map(lambda t, a: torch.chunk(t, 2, dim=-1)[0] + a, flow_ab)
+    flow_ca_hat = hat.map(lambda t, a: torch.chunk(t, 2, dim=-1)[1] + a, flow_ba)
+
+    # LHBDC.motion_compensate
+    flow_cb_hat = sp.upsample_flow(sp.unpad(flow_cb_hat, size), 4)
+    flow_ca_hat = sp.upsample_flow(sp.unpad(flow_ca_hat, size), 4)
+    fw = sp.warp(x_before, flow_cb_hat, "lhbdc")
+    bw = sp.warp(x_after, flow_ca_hat, "lhbdc")
+    mask = mask_unet_forward(sp, model.masknet, cat([fw, bw], dim=-1))
+    x_pred = mask.map(lambda m, a, b: m * a + (1.0 - m) * b, fw, bw)
+
+    residual = x_current.map(torch.sub, x_pred)
+    res_out = hyperprior_forward(sp, model.residual_compressor, residual, mode)
+    x_hat = x_pred.map(torch.add, res_out["x_hat"])
+
+    liks = list(flow_out["likelihoods"].values()) + list(res_out["likelihoods"].values())
+    bits, per_sample = sp.bits(liks)
+    n_flow = len(flow_out["likelihoods"])
+    bits_flow = sum(bits[:n_flow])
+    bits_res = sum(bits[n_flow:])
+    return {
+        "x_hat": x_hat,
+        "x_pred": x_pred,
+        "rate": (bits_flow + bits_res) / (2.0 * num_pixels),
+        "bits": bits_flow + bits_res,
+        "bits_flow": bits_flow,
+        "bits_residual": bits_res,
+        "sizes": sum(per_sample),
+    }
