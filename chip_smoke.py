@@ -17,7 +17,8 @@ measurement, and the train CLI trains every family at batch 8 on 256x256
 crops, reference checkpoints imported at full width code B-frames, the
 still-image eval runs at the Kodak size, the mesh paths run in two
 torchrun ranks sharing the card over gloo (and NCCL in a one-rank group),
-and LHBDC's forward runs with the frame's rows split over four ranks;
+and the forwards of LHBDC, FlowGuidedB and DeformB run with the frame's rows
+split over four ranks;
 each decode must reproduce its encoder's reconstructions bit for bit. Each
 phase runs under its own time limit and prints JSON lines:
 
@@ -39,7 +40,9 @@ phase runs under its own time limit and prints JSON lines:
                      spreads; batch 1: smooth): max
                      abs error (<= 2e-5), kernel / plain times, byte and
                      operation bounds; at the largest shape and spread, two
-                     launches must give the same bits
+                     launches must give the same bits; then rows
+                     [y0, y0 + rows) of a whole map (DEFORM_ROW_SHAPES),
+                     each bit for bit those rows of a whole-frame launch
   train_kernel_check both kernels at the training shapes (batch 8, 256x256
                      crops): the forward against the plain version, the
                      kernel path's gradients (kernel forward, autograd of
@@ -79,7 +82,7 @@ phase runs under its own time limit and prints JSON lines:
                      PSNR, decode_bit_exact, launches, peak device memory,
                      the down ratios --adaptive chose
   sequence_cli_v3_flexrate  the same for DeformB and Flex-Rate, level-batched
-                     33 frames each at their windows' batch caps
+                     17 frames each at their windows' batch caps
   sequence_cli_dmc   encode_p --adaptive on 9 synthetic 1088x1920 frames
                      (ELIC I-frame, 8 DMC P-frames), decode_p in a fresh
                      process: frames/s, intra ms per frame, bpp, the down
@@ -134,14 +137,16 @@ phase runs under its own time limit and prints JSON lines:
                      bars, steps/s
   nccl_world1        a one-rank NCCL group on cuda:0: make_mesh and the
                      collectives of CUDA tensors give the expected values
-  mesh_spatial_forward  LHBDC(N=128)'s forward of one 1088x1920 B-frame
-                     with its rows split over four gloo ranks sharing the
-                     card (tpuvc_torch.parallel.spatial: explicit row
-                     fetches, the warp kernel at each rank's first row)
-                     against the same forward unsharded in this process:
-                     forward ms, peak memory, warp launches and their y0,
-                     bytes fetched, warp samples in other ranks' rows,
-                     x_hat's difference, flipped latents, the bits
+  mesh_spatial_forward  the forwards of LHBDC(N=128), FlowGuidedB and
+                     DeformB (full width) of one 1088x1920 B-frame with its
+                     rows split over four gloo ranks sharing the card
+                     (tpuvc_torch.parallel.spatial: explicit row fetches,
+                     the warp and deform kernels at each rank's first row)
+                     against the same forwards unsharded in this process:
+                     forward ms, peak memory, warp and deform launches and
+                     their y0, bytes fetched, warp samples and deform taps
+                     in other ranks' rows, x_hat's difference, flipped
+                     latents, the bits
   adaptive_ratios    FlowGuidedB coded at down ratios 2, 4, 8, 16, each
                      stream decoded bit for bit
   bench_torch        bench_torch.py in a subprocess: its last record must
@@ -252,6 +257,17 @@ DEFORM_SHAPES = [
     ("v3 L3", (1, 136, 240, 96), 8, 96, 10.0, ("smooth",)),
 ]
 DEFORM_TAPS = 9
+
+# Deform convs of output rows [y0, y0 + rows) of a whole map (the kernel's
+# row offset), smooth offsets: rank 1's rows of v4's largest level, rank 3's
+# of v3's (they end at the frame's last row), and one row of v4's smallest
+# level. (level, x shape, groups, output channels, y0, rows); the spatial
+# path's own (B=1) rows go to path_shapes_check.
+DEFORM_ROW_SHAPES = [
+    ("L1", (2, 544, 960, 128), 16, 64, 136, 136),
+    ("v3 L1", (2, 544, 960, 32), 8, 32, 408, 136),
+    ("L3", (2, 136, 240, 256), 16, 128, 67, 1),
+]
 
 
 def deform_ops(B, H, W, G, Cg, Og, T=DEFORM_TAPS) -> int:
@@ -397,7 +413,7 @@ def deform_check(torch) -> list[dict]:
     """The deform kernel against deform_plain at the v4 and v3 paths'
     shapes, with offsets at up to three spreads: 0 (integer taps), smooth
     +-5 px, and the level's tanh bound (40/20/10 px: many samples leave the
-    frame)."""
+    frame); then DEFORM_ROW_SHAPES (deform_row_check)."""
     from tpuvc_torch.ops import deform as D
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -428,7 +444,7 @@ def deform_check(torch) -> list[dict]:
             del out_k, out_p
             row = {
                 "phase": "deform_check", "level": level, "spread": spread,
-                "x_shape": [B, H, W, C], "groups": G, "out_channels": C_out,
+                "x_shape": [B, H, W, C], "groups": G, "out_channels": C_out, "y0": 0, "rows": H,
                 "max_abs_err": err, "max_abs_out": scale,
                 "ms": time_ms(torch, lambda: D.deform_kernel(*args), 10),
                 "plain_ms": time_ms(torch, lambda: D.deform_plain(*args), 2, 1),
@@ -450,6 +466,64 @@ def deform_check(torch) -> list[dict]:
             if row.get("repeat_bit_exact") is False:
                 raise AssertionError(f"deform {level} {spread}: two launches differ")
         del x, masks, weight, bias, spreads
+        torch.cuda.empty_cache()
+    return rows + deform_row_check(torch, gen)
+
+
+def deform_row_check(torch, gen) -> list[dict]:
+    """The kernel's row offset at DEFORM_ROW_SHAPES: a launch for rows
+    [y0, y0 + rows) from offsets and masks of those rows must equal those
+    rows of a whole-frame launch bit for bit, and deform_plain with the same
+    y0 within 2e-5. The byte bound counts the rows' offsets, masks and
+    output and the rows of x their taps reach (per batch, the lowest to the
+    highest)."""
+    from tpuvc_torch.ops import deform as D
+
+    T = DEFORM_TAPS
+    rows = []
+    for level, (B, H, W, C), G, C_out, y0, n in DEFORM_ROW_SHAPES:
+        Cg, Og = C // G, C_out // G
+        x, masks_full, weight, bias = deform_inputs(torch, gen, B, H, W, C, C_out, G)
+        off_full = smooth_offsets(torch, gen, B, H, W, G * T * 2)
+        whole = D.deform_kernel(x, off_full, masks_full, weight, bias, G, 3)[:, y0:y0 + n].clone()
+        off, masks = (t[:, y0:y0 + n].contiguous() for t in (off_full, masks_full))
+        del off_full, masks_full
+        args = (x, off, masks, weight, bias, G, 3, y0)
+        out_k = D.deform_kernel(*args)
+        out_p = D.deform_plain(*args)
+        torch.cuda.synchronize()
+        err = float((out_k - out_p).abs().max())
+        equal = bool(torch.equal(out_k, whole))
+        del out_k, out_p, whole
+        # the rows of x the taps reach, per batch: floor of the row positions
+        # and the row below, clipped to the frame
+        base = torch.arange(T, device="cuda") // 3 - 1
+        ys = torch.arange(y0, y0 + n, device="cuda")[None, :, None, None, None]
+        reach = torch.floor(ys + base + off[..., 0::2].reshape(B, n, W, G, T))
+        lo = torch.clamp(reach.amin(dim=(1, 2, 3, 4)), 0, H - 1)
+        hi = torch.clamp(reach.amax(dim=(1, 2, 3, 4)) + 1, 0, H - 1)
+        x_rows = int((hi - lo + 1).sum())
+        n_bytes = 4 * (x_rows * W * C + off.numel() + masks.numel() + B * n * W * C_out
+                       + weight.numel() + bias.numel())
+        bound_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+        bound_ops = 1e3 * deform_ops(B, n, W, G, Cg, Og) / F32_OPS_PER_S
+        row = {
+            "phase": "deform_check", "level": level, "spread": "smooth_5px",
+            "x_shape": [B, H, W, C], "groups": G, "out_channels": C_out, "y0": y0, "rows": n,
+            "max_abs_err": err, "equals_whole_frame_rows": equal,
+            "ms": time_ms(torch, lambda: D.deform_kernel(*args), 20),
+            "plain_ms": time_ms(torch, lambda: D.deform_plain(*args), 2, 1),
+            "library_ms": None,
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "bytes_bound_ms": bound_bytes, "ops_bound_ms": bound_ops, "x_rows_reached": x_rows,
+        }
+        emit(row)
+        rows.append(row)
+        if not (err <= 2e-5 and equal):
+            raise AssertionError(f"deform {level} rows {y0}+{n}: max abs err {err}, "
+                                 f"equal to the whole frame's rows {equal}")
+        del x, off, masks, weight, bias, args
         torch.cuda.empty_cache()
     return rows
 
@@ -824,20 +898,22 @@ class LaunchLog:
 
 def log_launches() -> dict:
     """Put a LaunchLog in front of each built kernel library. Keys: warp
-    (B, H, W, C, sx, sy, zero, y0, H_out), deform (B, H, W, G, Cg, Og, K)."""
+    (B, H, W, C, sx, sy, zero, y0, H_out), deform (B, H, W, G, Cg, Og, K, y0,
+    H_out)."""
     from tpuvc_torch.ops import deform, warp
 
     warp._lib = LaunchLog(warp._get_lib(), "tpuvc_warp_bilinear_nhwc", slice(3, 12))
-    deform._lib = LaunchLog(deform._get_lib(), "tpuvc_deform_conv_nhwc", slice(6, 13))
+    deform._lib = LaunchLog(deform._get_lib(), "tpuvc_deform_conv_nhwc", slice(6, 15))
     return {"warp": warp._lib.shapes, "deform": deform._lib.shapes}
 
 
 def path_shapes_check(torch, logged: dict, warp_rows, deform_rows) -> list[dict]:
     """Every warp and deform shape a path launched that warp_check and
     deform_check did not hold against the plain versions (SPyNet's middle
-    pyramid levels, for one): the kernel against warp_plain's sampling
-    (bit for bit) and deform_plain (smooth +-5 px offsets, <= 2e-5) once,
-    on seeded inputs."""
+    pyramid levels, a spatial rank's rows, for two): the kernel against
+    warp_plain's sampling (bit for bit) and deform_plain (smooth +-5 px
+    offsets, <= 2e-5; a launch of rows [y0, y0 + H_out) also bit for bit
+    against those rows of a whole-frame launch) once, on seeded inputs."""
     from tpuvc_torch.ops import deform as D
     from tpuvc_torch.ops import warp as W
 
@@ -847,7 +923,8 @@ def path_shapes_check(torch, logged: dict, warp_rows, deform_rows) -> list[dict]
         sx, sy, zero = W._scales(r["compat"], H, Wd)
         checked_warp.add((B, H, Wd, C, sx, sy, int(zero), r["y0"], r["rows"]))
     checked_deform = {(*r["x_shape"][:3], r["groups"], r["x_shape"][3] // r["groups"],
-                       r["out_channels"] // r["groups"], 3) for r in deform_rows}
+                       r["out_channels"] // r["groups"], 3, r["y0"], r["rows"])
+                      for r in deform_rows}
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for key in sorted(logged["warp"] - checked_warp):
@@ -864,17 +941,23 @@ def path_shapes_check(torch, logged: dict, warp_rows, deform_rows) -> list[dict]
         if not rows[-1]["bit_exact"]:
             raise AssertionError(f"warp at a path's shape differs from warp_plain: {rows[-1]}")
     for key in sorted(logged["deform"] - checked_deform):
-        B, H, Wd, G, Cg, Og, K = key
+        B, H, Wd, G, Cg, Og, K, y0, rows_out = key
         x, masks, weight, bias = deform_inputs(torch, gen, B, H, Wd, G * Cg, G * Og, G, K * K)
         off = smooth_offsets(torch, gen, B, H, Wd, G * K * K * 2)
-        args = (x, off, masks, weight, bias, G, K)
-        err = float((D.deform_kernel(*args) - D.deform_plain(*args)).abs().max())
+        part = [t[:, y0:y0 + rows_out].contiguous() for t in (off, masks)]
+        args = (x, part[0], part[1], weight, bias, G, K, y0)
+        out_k = D.deform_kernel(*args)
+        err = float((out_k - D.deform_plain(*args)).abs().max())
+        whole = rows_out == H or bool(torch.equal(
+            out_k, D.deform_kernel(x, off, masks, weight, bias, G, K)[:, y0:y0 + rows_out]))
         rows.append({"phase": "path_shapes_check", "kernel": "deform",
                      "x_shape": [B, H, Wd, G * Cg], "groups": G, "out_channels": G * Og,
-                     "spread": "smooth_5px", "max_abs_err": err})
+                     "y0": y0, "rows": rows_out, "spread": "smooth_5px", "max_abs_err": err,
+                     "equals_whole_frame_rows": whole})
         emit(rows[-1])
-        if not err <= 2e-5:
-            raise AssertionError(f"deform at a path's shape differs from deform_plain: {rows[-1]}")
+        if not (err <= 2e-5 and whole):
+            raise AssertionError(f"deform at a path's shape differs from deform_plain or the "
+                                 f"whole frame's rows: {rows[-1]}")
     emit({"phase": "path_shapes_check", "warp_shapes_launched": len(logged["warp"]),
           "deform_shapes_launched": len(logged["deform"]), "checked_here": len(rows)})
     return rows
@@ -1093,16 +1176,18 @@ SEQUENCE_RUNS = [
     ("flowguided_b", "flowguided_b", SEQUENCE_V4),
     ("flowguided_b_adaptive", "flowguided_b", SEQUENCE_V4 + ["--adaptive"]),
 ]
-# DeformB and Flex-Rate take their windows' settings (main_path_v3,
-# main_path_flexrate) with real ELIC anchors, level-batched, 33 frames.
+# DeformB and Flex-Rate take their windows' batch caps (main_path_v3,
+# main_path_flexrate) with real ELIC anchors, level-batched, 17 frames (one
+# GOP a window; 33 frames, two GOPs, until the smoke's time limit asked for
+# the cut).
 SEQUENCE_RUNS_V3_FLEXRATE = [
     ("deform_b", "deform_b", [
-        "--family", "deform_b", "--synthetic", "33", "--gop", "16", "--level_batched",
-        "--max_batch", "2", "--window_gops", "2", "--compute_dtype", "bfloat16",
+        "--family", "deform_b", "--synthetic", "17", "--gop", "16", "--level_batched",
+        "--max_batch", "2", "--window_gops", "1", "--compute_dtype", "bfloat16",
         "--s", "1.0"]),
     ("flexrate", "flexrate", [
-        "--family", "flexrate", "--synthetic", "33", "--gop", "16", "--level_batched",
-        "--max_batch", "4", "--window_gops", "2", "--compute_dtype", "bfloat16",
+        "--family", "flexrate", "--synthetic", "17", "--gop", "16", "--level_batched",
+        "--max_batch", "4", "--window_gops", "1", "--compute_dtype", "bfloat16",
         "--n", "1", "--interp", "0.66"]),
 ]
 SEQUENCE_SIZE = ["--width", str(FRAME[1]), "--height", str(FRAME[0])]
@@ -2624,25 +2709,54 @@ def nccl_world1(tmp: str) -> dict:
     return row
 
 
-# mesh_spatial_forward: LHBDC(N=128) (main_path's model and seed; LHBDC has
-# no zero-initialised head, so its seeded SPyNet already moves pixels) on one
-# B-frame of bench.py's frames (numpy seed 0: frames 0, 8 and 16 of its
-# drifting sequence), float32, 'dequantize', H-sharded over 4 gloo ranks that
-# share the card; the deep levels' shards are uneven and, at the MV path's
-# /64, one is empty (320 // 64 = 5 rows: 2, 2, 1, 0).
+# mesh_spatial_forward: one B-frame of bench.py's frames (numpy seed 0:
+# frames 0, 8 and 16 of its drifting sequence), float32, 'dequantize',
+# H-sharded over 4 gloo ranks that share the card, for each family with a
+# sharded forward: LHBDC(N=128) (main_path's model and seed; it has no
+# zero-initialised head, so its seeded SPyNet already moves pixels),
+# FlowGuidedB and DeformB at full width, heads seeded (main_path_v4's and
+# main_path_v3's models), s=1.0, v4 at down ratio 1. The deep levels' shards
+# are uneven and, at LHBDC's MV /64, one is empty (320 // 64 = 5 rows: 2, 2,
+# 1, 0); v3/v4's /16 latents' 68 rows start at 0, 17, 34, 51, odd on ranks
+# 1 and 3 (the checkerboard's parity).
 SPATIAL_RANKS = 4
 SPATIAL_BITS_BAR = 1e-3     # relative
 SPATIAL_FLIP_BAR = 1e-5     # share of quantized latents that round the other way
 SPATIAL_X_HAT_BAR = 2e-4    # absolute, where no latent flipped (tpuvc's bar)
-SPATIAL_LATENTS = {"mv_y": ("mv_compressor", "gaussian"),
-                   "mv_z": ("mv_compressor", "entropy_bottleneck"),
-                   "res_y": ("residual_compressor", "gaussian"),
-                   "res_z": ("residual_compressor", "entropy_bottleneck")}
+# Every process of the phase, the unsharded forward's and the ranks', runs
+# under this cap of device memory. For the k3 convs at /8 with 192-320
+# channels cuDNN's heuristics take a plan with a 12-20 GiB workspace where a
+# process has the card alone, and PyTorch passes over a plan whose workspace
+# it cannot allocate: four ranks sharing one card's 80 GB cannot all hold
+# one, and a rank that falls back sums those convs otherwise (one rank in
+# four did, in PR 14's runs). Under the cap all take the same plans.
+SPATIAL_MEM_GIB = 10
+SPATIAL_FAMILIES = {"lhbdc": {}, "flowguided_b": {"s": 1.0, "down_ratio": 1},
+                    "deform_b": {"s": 1.0}}
+# Each family's quantized latents: {name: (codec, entropy model, rounded)}.
+# ``rounded`` also keeps round(input): CondELIC synthesises from round(y) and
+# builds its hyper prior from round(z), not from the entropy models' outputs
+# (which round around the means and medians), so a latent has flipped where
+# either rounds the other way.
+_COND_ELIC_LATENTS = {f"{short}_{v}": (codec, part, True)
+                      for short, codec in (("off", "offset_compressor"),
+                                           ("res", "residual_compressor"))
+                      for v, part in (("y", "gaussian"), ("z", "entropy_bottleneck"))}
+SPATIAL_LATENTS = {
+    "lhbdc": {"mv_y": ("mv_compressor", "gaussian", False),
+              "mv_z": ("mv_compressor", "entropy_bottleneck", False),
+              "res_y": ("residual_compressor", "gaussian", False),
+              "res_z": ("residual_compressor", "entropy_bottleneck", False)},
+    "flowguided_b": _COND_ELIC_LATENTS,
+    "deform_b": _COND_ELIC_LATENTS,
+}
 
 
-def spatial_inputs(torch, device, frame=FRAME):
-    """(LHBDC(N=128) seeded as main_path's, (x_before, x_current, x_after))
-    on ``device``: bench.py's frames 0, 8 and 16 at ``frame``."""
+def spatial_inputs(torch, device, frame=FRAME, family: str = "lhbdc"):
+    """(the family's seeded model, (x_before, x_current, x_after)) on
+    ``device``: bench.py's frames 0, 8 and 16 at ``frame``. LHBDC(N=128)
+    seeded as main_path's; FlowGuidedB and DeformB at full width as
+    main_path_v4's and main_path_v3's (``v4_model``, ``v3_model``)."""
     import numpy as np
 
     from tpuvc_torch.models.lhbdc import LHBDC
@@ -2651,49 +2765,91 @@ def spatial_inputs(torch, device, frame=FRAME):
     base = rng.random((*frame, 3), dtype=np.float32)
     drift = (0.01 * rng.standard_normal((*frame, 3))).astype(np.float32)
     xs = [torch.from_numpy(np.clip(base + i * drift, 0, 1))[None].to(device) for i in (0, 8, 16)]
-    model = LHBDC(N=128, generator=torch.Generator().manual_seed(0)).to(device).eval()
-    return model, xs
+    if family == "lhbdc":
+        model = LHBDC(N=128, generator=torch.Generator().manual_seed(0))
+    else:
+        model = (v4_model if family == "flowguided_b" else v3_model)(torch)
+    return model.to(device).eval(), xs
+
+
+def cap_device_memory(torch, gib) -> None:
+    """Cap this process's device memory (PyTorch's caching allocator) at
+    ``gib`` GiB of the card's, or lift the cap with None."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(1.0 if gib is None else gib * 2**30 / total)
+
+
+def unsharded_forward(model, family: str, frames) -> dict:
+    """The family's own ``dequantize`` forward of (x_before, x_current,
+    x_after) with SPATIAL_FAMILIES' arguments: {"x_hat", "bits"}."""
+    xb, xc, xa = frames
+    kw = SPATIAL_FAMILIES[family]
+    if family == "lhbdc":
+        out = model(xb, xc, xa, "dequantize")
+        return {"x_hat": out["x_hat"], "bits": out["bits"]}
+    if family == "flowguided_b":
+        out = model(xb, xa, xc, kw["s"], 0.5, -0.5, kw["down_ratio"], "dequantize")
+    else:
+        out = model(xb, xa, xc, kw["s"], "dequantize")
+    return {"x_hat": out["x_hat"], "bits": out["size"]}
 
 
 class _KeepLatent:
     """Stands in for a codec's GaussianConditional (a plain object, which
-    takes no forward hook): calls it and keeps its first output."""
+    takes no forward hook): calls it and hands (its first output, its
+    input) to ``keep``."""
 
-    def __init__(self, inner, got: dict, name: str):
-        self._inner, self._got, self._name = inner, got, name
+    def __init__(self, inner, keep):
+        self._inner, self._keep = inner, keep
 
     def __call__(self, *args, **kw):
         out = self._inner(*args, **kw)
-        self._got[self._name] = out[0].detach()
+        self._keep(out[0], args[0])
         return out
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
 
 
-def latent_hooks(model) -> dict:
-    """Keep the quantized latents (the entropy models' first output) of the
-    model's last forward under SPATIAL_LATENTS' names: a forward hook on
-    each bottleneck, a _KeepLatent around each Gaussian conditional."""
+def latent_hooks(model, family: str) -> dict:
+    """Keep the quantized latents (the entropy models' first output, with
+    round(input) stacked before it where SPATIAL_LATENTS says so) of the
+    model's forwards under SPATIAL_LATENTS' names: a forward hook on each
+    bottleneck, a _KeepLatent around each Gaussian conditional. A model
+    that calls one several times a forward (CondELIC's channel groups)
+    keeps a list of its outputs; clear the dict before the forward to keep."""
+    import torch
+
     got = {}
-    for name, (codec, part) in SPATIAL_LATENTS.items():
+    for name, (codec, part, rounded) in SPATIAL_LATENTS[family].items():
+        def keep(q, x, name=name, rounded=rounded):
+            got.setdefault(name, []).append(
+                torch.stack([q.detach(), torch.round(x.detach())]) if rounded else q.detach()[None])
+
         owner = getattr(model, codec)
         if part == "gaussian":
-            owner.gaussian = _KeepLatent(owner.gaussian, got, name)
+            owner.gaussian = _KeepLatent(owner.gaussian, keep)
         else:
-            def keep(mod, args, out, name=name):
-                got[name] = out[0].detach()
-            getattr(owner, part).register_forward_hook(keep)
+            getattr(owner, part).register_forward_hook(
+                lambda mod, args, out, keep=keep: keep(out[0], args[0]))
     return got
 
 
+def kept_latents(got: dict) -> dict:
+    """latent_hooks' lists joined: {name: (views, B, H, W, C)} on the CPU,
+    the channel groups of one forward side by side."""
+    import torch
+
+    return {k: torch.cat(v, dim=-1).cpu() for k, v in got.items()}
+
+
 # Run by torchrun in each rank: joins a gloo group on the device named by the
-# second argument, builds spatial_inputs (frame H x W from the third), runs
-# spatial_forward once to warm up and once timed with the launch counts set
-# to 0 just before and read just after, and saves this rank's rows of x_hat,
-# its rows of the quantized latents, the totals, its SpatialStats, the
-# forward's ms and peak memory and the launched warp shapes to
-# OUT/spatial_RANK.pt.
+# second argument; for each family of SPATIAL_FAMILIES builds spatial_inputs
+# (frame H x W from the third), runs spatial_forward once to warm up and once
+# timed with the launch counts set to 0 just before and read just after, and
+# saves this rank's rows of x_hat, its rows of the quantized latents, the
+# totals, its SpatialStats, the forward's ms and peak memory and the launched
+# kernel shapes to OUT/spatial_FAMILY_RANK.pt.
 MESH_SPATIAL_IN_RANKS = """
 import dataclasses, os, sys, time
 import torch
@@ -2707,137 +2863,175 @@ mesh = make_mesh(backend="gloo", device=device)
 cuda = mesh.device.type == "cuda"
 if cuda:
     set_deterministic()
+    chip_smoke.cap_device_memory(torch, chip_smoke.SPATIAL_MEM_GIB)
 logged = chip_smoke.log_launches() if cuda else {"warp": set(), "deform": set()}
-model, frames = chip_smoke.spatial_inputs(torch, mesh.device, frame)
-latents = chip_smoke.latent_hooks(model)
-rows = S.shard_spatial(mesh, frames)
-S.spatial_forward(mesh, model, *rows)
-if cuda:
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-dist.barrier()
-logged["warp"].clear()
-stats = S.SpatialStats()
-chip_smoke.reset_launches()
-t0 = time.perf_counter()
-out = S.spatial_forward(mesh, model, *rows, stats=stats)
-if cuda:
-    torch.cuda.synchronize()
-ms = 1e3 * (time.perf_counter() - t0)
-launches = chip_smoke.read_launches()
-torch.save({"rank": mesh.rank, "ms": ms, "launches": launches,
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
-            "x_hat": out["x_hat"].x.cpu(), "latents": {k: v.cpu() for k, v in latents.items()},
-            "bits": float(out["bits"]), "sizes": out["sizes"].cpu(),
-            "stats": dataclasses.asdict(stats), "shapes": sorted(logged["warp"])},
-           os.path.join(out_dir, f"spatial_{mesh.rank}.pt"))
+for family, kw in chip_smoke.SPATIAL_FAMILIES.items():
+    model, frames = chip_smoke.spatial_inputs(torch, mesh.device, frame, family)
+    latents = chip_smoke.latent_hooks(model, family)
+    rows = S.shard_spatial(mesh, frames)
+    S.spatial_forward(mesh, model, *rows, **kw)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    for shapes in logged.values():
+        shapes.clear()
+    latents.clear()
+    stats = S.SpatialStats()
+    chip_smoke.reset_launches()
+    t0 = time.perf_counter()
+    out = S.spatial_forward(mesh, model, *rows, stats=stats, **kw)
+    if cuda:
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = chip_smoke.read_launches()
+    torch.save({"rank": mesh.rank, "ms": ms, "launches": launches,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+                "x_hat": out["x_hat"].x.cpu(), "latents": chip_smoke.kept_latents(latents),
+                "bits": float(out["bits"]), "sizes": out["sizes"].cpu(),
+                "stats": dataclasses.asdict(stats),
+                "shapes": {k: sorted(v) for k, v in logged.items()}},
+               os.path.join(out_dir, f"spatial_{family}_{mesh.rank}.pt"))
+    del model, frames, rows, out, latents
+    if cuda:
+        chip_smoke.release_cache(torch)
+    dist.barrier()
 dist.destroy_process_group()
 """
 
 
 def mesh_spatial_forward(torch, logged: dict, tmp: str, device: str = "cuda",
                          frame=FRAME) -> dict:
-    """LHBDC's forward with the frame's rows split over SPATIAL_RANKS gloo
-    ranks on the card (tpuvc_torch.parallel.spatial, MESH_SPATIAL_IN_RANKS)
+    """Each SPATIAL_FAMILIES forward with the frame's rows split over
+    SPATIAL_RANKS gloo ranks on the card (tpuvc_torch.parallel.spatial,
+    MESH_SPATIAL_IN_RANKS, one launch of the ranks for all families)
     against the same forward unsharded in this process, each after a warm
-    forward. One row for the unsharded run and one per rank (forward ms,
-    peak GiB, warp launches and their y0, bytes fetched, the share of warp
-    samples in another rank's rows), then the comparison: x_hat's largest
-    difference and share above 1e-4, the quantized latents that differ (by
-    more than 0.5: a value that rounds the other way), the bits' relative
-    difference. cuDNN picks its algorithm by shape, so a latent near a
-    rounding edge may flip: the phase fails on bits off by more than
-    SPATIAL_BITS_BAR, more than SPATIAL_FLIP_BAR of the latents flipped,
-    x_hat off by more than SPATIAL_X_HAT_BAR where none flipped, a rank
-    without a warp launch, ranks 1.. without a launch at y0 > 0, or no warp
-    sample in another rank's rows."""
+    forward, every process capped at SPATIAL_MEM_GIB of device memory. Per
+    family, one row for the unsharded run and one per rank (forward ms,
+    peak GiB, warp and deform launches and their y0, bytes fetched, the
+    share of warp samples and of deform taps in another rank's rows), then the comparison: x_hat's largest difference and share above
+    1e-4, the quantized latents that differ (by more than 0.5: a value that
+    rounds the other way), the bits' relative difference. cuDNN picks its
+    algorithm by shape, so a latent near a rounding edge may flip: the
+    phase fails on bits off by more than SPATIAL_BITS_BAR, more than
+    SPATIAL_FLIP_BAR of the latents flipped, x_hat off by more than
+    SPATIAL_X_HAT_BAR where none flipped, a rank without a launch of each
+    kernel of the family (FAMILY_KERNELS) or with launch counts other than
+    its recorded warps and deform convs, ranks 1.. with a launch at y0 0,
+    or no warp sample (no deform tap) in another rank's rows."""
     from tpuvc_torch.parallel.spatial import rows_of
 
     cuda = device == "cuda"
-    model, frames = spatial_inputs(torch, device, frame)
-    latents = latent_hooks(model)
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    with torch.no_grad():
-        model(*frames, "dequantize")
-        sync()
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        t0 = time.perf_counter()
-        ref = model(*frames, "dequantize")
-        sync()
-        ms = 1e3 * (time.perf_counter() - t0)
-    one = {"phase": "mesh_spatial_forward", "run": "one process, unsharded", "frame": list(frame),
-           "model": "LHBDC(N=128) seeded", "mode": "dequantize", "compute_dtype": "float32",
-           "forward_ms": ms, "launches": read_launches(),
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
-    emit(one)
-    x_ref = ref["x_hat"].cpu()
-    lat_ref = {k: v.cpu() for k, v in latents.items()}
-    bits_ref = float(ref["bits"])
-    del model, frames, ref, latents
     if cuda:
-        release_cache(torch)
+        cap_device_memory(torch, SPATIAL_MEM_GIB)
+    unsharded = {}
+    for family in SPATIAL_FAMILIES:
+        model, frames = spatial_inputs(torch, device, frame, family)
+        latents = latent_hooks(model, family)
+        with torch.no_grad():
+            unsharded_forward(model, family, frames)
+            sync()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            latents.clear()
+            reset_launches()
+            t0 = time.perf_counter()
+            ref = unsharded_forward(model, family, frames)
+            sync()
+            ms = 1e3 * (time.perf_counter() - t0)
+        one = {"phase": "mesh_spatial_forward", "family": family, "run": "one process, unsharded",
+               "frame": list(frame), "family_args": SPATIAL_FAMILIES[family],
+               "mode": "dequantize", "compute_dtype": "float32", "forward_ms": ms,
+               "launches": read_launches(),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
+        emit(one)
+        unsharded[family] = (one, ref["x_hat"].cpu(), kept_latents(latents), float(ref["bits"]))
+        del model, frames, ref, latents
+        if cuda:
+            release_cache(torch)
+    if cuda:
+        cap_device_memory(torch, None)
     out_dir = os.path.join(tmp, "spatial_ranks")
     os.makedirs(out_dir)
     launch_ranks(SPATIAL_RANKS, MESH_SPATIAL_IN_RANKS, [out_dir, device, "x".join(map(str, frame))],
-                 420)
-    ranks = [torch.load(os.path.join(out_dir, f"spatial_{r}.pt"), weights_only=False)
-             for r in range(SPATIAL_RANKS)]
-    rows = []
-    for r in ranks:
-        st = r["stats"]
-        logged["warp"].update(tuple(v) for v in r["shapes"])
-        rows.append({"phase": "mesh_spatial_forward", "run": f"rank {r['rank']} of {SPATIAL_RANKS}",
-                     "rows": list(rows_of(frame[0], SPATIAL_RANKS, r["rank"])),
-                     "forward_ms": r["ms"], "peak_mem_gib": r["peak_mem_gib"],
-                     "launches": r["launches"],
-                     "warps_y0_rows_H_B_C": st["warps"],
-                     "bytes_fetched": st["bytes_fetched"], "fetches": st["fetches"],
-                     "warp_samples_in_other_ranks_rows": st["samples_elsewhere"] / st["samples"]})
-        emit(rows[-1])
-    x_hat = torch.cat([r["x_hat"] for r in ranks], dim=1)
-    d = (x_hat - x_ref).abs()
-    flipped = {k: int(((torch.cat([r["latents"][k] for r in ranks], dim=1) - v).abs() > 0.5).sum())
-               for k, v in lat_ref.items()}
-    n_latents = sum(v.numel() for v in lat_ref.values())
-    bits = ranks[0]["bits"]
-    samples = sum(r["stats"]["samples"] for r in ranks)
-    summary = {
-        "phase": "mesh_spatial_forward", "run": "sharded vs unsharded", "frame": list(frame),
-        "ranks": SPATIAL_RANKS, "dist_backend": "gloo" if cuda else "gloo (CPU)",
-        "ranks_share_one_card": cuda,
-        "x_hat_shape": list(x_hat.shape), "x_hat_max_abs_diff": float(d.max()),
-        "x_hat_share_above_1e-4": float((d > 1e-4).float().mean()),
-        "latents_flipped": flipped, "latents": n_latents,
-        "latents_flipped_share": sum(flipped.values()) / n_latents,
-        "bits": bits, "bits_unsharded": bits_ref, "bits_rel_diff": abs(bits - bits_ref) / bits_ref,
-        "ranks_bits_equal": len({r["bits"] for r in ranks}) == 1,
-        "bytes_fetched_per_forward": sum(r["stats"]["bytes_fetched"] for r in ranks),
-        "warp_samples_in_other_ranks_rows": sum(r["stats"]["samples_elsewhere"] for r in ranks)
-        / samples,
-        "forward_ms_slowest_rank": max(r["ms"] for r in ranks), "forward_ms_unsharded": ms,
-    }
-    emit(summary)
-    fails = []
-    if not summary["bits_rel_diff"] <= SPATIAL_BITS_BAR:
-        fails.append("bits")
-    if not summary["latents_flipped_share"] <= SPATIAL_FLIP_BAR:
-        fails.append("flipped latents")
-    if sum(flipped.values()) == 0 and not summary["x_hat_max_abs_diff"] <= SPATIAL_X_HAT_BAR:
-        fails.append("x_hat")
-    if list(x_hat.shape) != [1, *frame, 3] or not bool(torch.isfinite(x_hat).all()):
-        fails.append("x_hat shape or finiteness")
-    if not summary["ranks_bits_equal"] or summary["warp_samples_in_other_ranks_rows"] <= 0:
-        fails.append("ranks' totals or cross-rank samples")
-    for r, row in zip(ranks, rows):
-        y0s = {w[0] for w in row["warps_y0_rows_H_B_C"]}
-        if cuda and (r["launches"]["warp"] != len(row["warps_y0_rows_H_B_C"])
-                     or r["launches"]["warp"] == 0 or (r["rank"] > 0 and 0 in y0s)):
-            fails.append(f"rank {r['rank']}'s warp launches")
+                 600)
+    result, fails = {}, []
+    for family, (one, x_ref, lat_ref, bits_ref) in unsharded.items():
+        ranks = [torch.load(os.path.join(out_dir, f"spatial_{family}_{r}.pt"), weights_only=False)
+                 for r in range(SPATIAL_RANKS)]
+        rows = []
+        for r in ranks:
+            st = r["stats"]
+            for kernel in logged:
+                logged[kernel].update(tuple(v) for v in r["shapes"][kernel])
+            rows.append({
+                "phase": "mesh_spatial_forward", "family": family,
+                "run": f"rank {r['rank']} of {SPATIAL_RANKS}",
+                "rows": list(rows_of(frame[0], SPATIAL_RANKS, r["rank"])),
+                "forward_ms": r["ms"], "peak_mem_gib": r["peak_mem_gib"],
+                "launches": r["launches"], "warps_y0_rows_H_B_C": st["warps"],
+                "deforms_y0_rows_H_B_C": st["deforms"],
+                "bytes_fetched": st["bytes_fetched"], "fetches": st["fetches"],
+                "warp_samples_in_other_ranks_rows": st["samples_elsewhere"] / max(1, st["samples"]),
+                "deform_taps_in_other_ranks_rows": st["taps_elsewhere"] / max(1, st["taps"])})
+            emit(rows[-1])
+        x_hat = torch.cat([r["x_hat"] for r in ranks], dim=1)
+        d = (x_hat - x_ref).abs()
+        flipped = {k: int(((torch.cat([r["latents"][k] for r in ranks], dim=2) - v).abs() > 0.5)
+                          .any(dim=0).sum()) for k, v in lat_ref.items()}
+        n_latents = sum(v[0].numel() for v in lat_ref.values())
+        bits = ranks[0]["bits"]
+
+        def share(hit, total):
+            n = sum(r["stats"][total] for r in ranks)
+            return sum(r["stats"][hit] for r in ranks) / n if n else None
+
+        summary = {
+            "phase": "mesh_spatial_forward", "family": family, "run": "sharded vs unsharded",
+            "frame": list(frame), "ranks": SPATIAL_RANKS,
+            "dist_backend": "gloo" if cuda else "gloo (CPU)", "ranks_share_one_card": cuda,
+            "x_hat_shape": list(x_hat.shape), "x_hat_max_abs_diff": float(d.max()),
+            "x_hat_share_above_1e-4": float((d > 1e-4).float().mean()),
+            "latents_flipped": flipped, "latents": n_latents,
+            "latents_flipped_share": sum(flipped.values()) / n_latents,
+            "bits": bits, "bits_unsharded": bits_ref,
+            "bits_rel_diff": abs(bits - bits_ref) / bits_ref,
+            "ranks_bits_equal": len({r["bits"] for r in ranks}) == 1,
+            "bytes_fetched_per_forward": sum(r["stats"]["bytes_fetched"] for r in ranks),
+            "warp_samples_in_other_ranks_rows": share("samples_elsewhere", "samples"),
+            "deform_taps_in_other_ranks_rows": share("taps_elsewhere", "taps"),
+            "forward_ms_slowest_rank": max(r["ms"] for r in ranks),
+            "forward_ms_unsharded": one["forward_ms"],
+        }
+        emit(summary)
+        bad = []
+        if not summary["bits_rel_diff"] <= SPATIAL_BITS_BAR:
+            bad.append("bits")
+        if not summary["latents_flipped_share"] <= SPATIAL_FLIP_BAR:
+            bad.append("flipped latents")
+        if sum(flipped.values()) == 0 and not summary["x_hat_max_abs_diff"] <= SPATIAL_X_HAT_BAR:
+            bad.append("x_hat")
+        if list(x_hat.shape) != [1, *frame, 3] or not bool(torch.isfinite(x_hat).all()):
+            bad.append("x_hat shape or finiteness")
+        if not summary["ranks_bits_equal"]:
+            bad.append("ranks' totals")
+        for kernel, what, hit in (("warp", "warps", "warp_samples_in_other_ranks_rows"),
+                                  ("deform", "deforms", "deform_taps_in_other_ranks_rows")):
+            if kernel not in FAMILY_KERNELS[family]:
+                continue
+            if not summary[hit]:
+                bad.append(f"no {kernel} sample in another rank's rows")
+            for r, row in zip(ranks, rows):
+                done = row[f"{what}_y0_rows_H_B_C"]
+                if (not done or (r["rank"] > 0 and 0 in {w[0] for w in done})
+                        or (cuda and r["launches"][kernel] != len(done))):
+                    bad.append(f"rank {r['rank']}'s {kernel} launches")
+        fails += [f"{family}: {b}" for b in bad]
+        result[family] = {"one_process": one, "ranks": rows, "summary": summary}
     if fails:
-        raise AssertionError(f"mesh_spatial_forward: {fails}: {summary}")
-    return {"one_process": one, "ranks": rows, "summary": summary}
+        raise AssertionError(f"mesh_spatial_forward: {fails}")
+    return result
 
 
 def warp_and_blend_check(torch) -> dict:
@@ -3005,7 +3199,7 @@ def main() -> int:
         mesh_train = mesh_train_cli(torch, logged, mesh_tmp.name)
     with phase("nccl_world1", 180):
         nccl_world1(mesh_tmp.name)
-    with phase("mesh_spatial_forward", 480):
+    with phase("mesh_spatial_forward", 720):
         spatial = mesh_spatial_forward(torch, logged, mesh_tmp.name)
     mesh_tmp.cleanup()
     with phase("adaptive_ratios", 180):
@@ -3042,25 +3236,27 @@ def main() -> int:
                               for k, v in enumerate(by_rank)})
         paths.update({f"mesh_train_cli_rank{k}": v[kernel]
                       for k, v in enumerate(mesh_train["launches_by_rank"])})
-        paths.update({f"mesh_spatial_forward_rank{k}": r["launches"][kernel]
-                      for k, r in enumerate(spatial["ranks"])})
+        paths.update({f"mesh_spatial_forward_{family}_rank{k}": r["launches"][kernel]
+                      for family, run in spatial.items() for k, r in enumerate(run["ranks"])})
         return paths
 
     warp_head = warp_rows[0]  # the largest shape: SPyNet's finest level
     # The deform kernel's headline: the v4 path's largest level, smooth offsets.
     deform_head = next(r for r in deform_rows if r["level"] == "L1" and r["x_shape"][0] == 2
-                       and r["spread"] == "smooth_5px")
+                       and r["spread"] == "smooth_5px" and r["y0"] == 0)
     # Each kernel on the v3 and Flex-Rate paths: Flex-Rate's warp at B=1 and
     # DeformB's largest level (smooth offsets, the <V=4, MAXO=8> instance).
     slice_heads = {
         "warp": next(r for r in warp_rows if r["compat"] == "flexrate" and r["shape"][0] == 1),
-        "deform": next(r for r in deform_rows if r["level"] == "v3 L1"
-                       and r["x_shape"][0] == 2 and r["spread"] == "smooth_5px"),
+        "deform": next(r for r in deform_rows if r["level"] == "v3 L1" and r["x_shape"][0] == 2
+                       and r["spread"] == "smooth_5px" and r["y0"] == 0),
     }
     # The warp on the DMC path: its 48-channel feature warp at 1088x1920.
     dmc_head = next(r for r in warp_rows if r["shape"] == [1, 1088, 1920, 48])
-    # The warp with a row offset: rank 1's rows of SPyNet's finest level.
-    spatial_head = next(r for r in warp_rows if r["y0"] > 0)
+    # Each kernel with a row offset: rank 1's rows of SPyNet's finest level,
+    # rank 1's rows of v4's largest deform level.
+    spatial_heads = {"warp": next(r for r in warp_rows if r["y0"] > 0),
+                     "deform": next(r for r in deform_rows if r["y0"] > 0)}
     kernels = []
     for kernel, head, rows, replaces in (
         ("warp", warp_head, warp_rows, "tpuvc/ops/warp_pallas.py:103"),
@@ -3083,8 +3279,9 @@ def main() -> int:
         if kernel == "warp":
             kernels[-1]["dmc_head"] = {k: dmc_head[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            kernels[-1]["spatial_head"] = {k: spatial_head[k] for k in (
-                "shape", "y0", "rows", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        kernels[-1]["spatial_head"] = {k: spatial_heads[kernel].get(k) for k in (
+            "shape", "x_shape", "y0", "rows", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
         # the largest training shape: forward, and the backward training runs
         train_head = max((r for r in train_krows if r["kernel"] == kernel),
                          key=lambda r: r["fwd_ms"])

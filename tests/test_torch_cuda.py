@@ -362,6 +362,58 @@ def test_deform_kernel_rejects_what_it_does_not_take(cuda):
         deform_kernel(x.cpu(), off.cpu(), masks.cpu(), weight.cpu(), bias.cpu(), 2)
 
 
+# (B, H, W, G, Cg, Og, y0, rows): rows [y0, y0 + rows) of a frame of H rows
+# at the v4 (16 groups of 8 -> 4) and v3 (8 groups of 4 -> 4) group shapes,
+# float4 lanes; scalar lanes (Cg=5); an odd y0, one row, all rows, rows that
+# end at the frame's last row.
+DEFORM_ROW_CASES = [
+    (2, 40, 53, 16, 8, 4, 10, 10),
+    (1, 40, 53, 16, 8, 4, 17, 1),
+    (1, 33, 70, 16, 8, 4, 21, 12),
+    (2, 40, 53, 8, 4, 4, 30, 10),
+    (1, 40, 53, 8, 4, 4, 0, 40),
+    (1, 29, 37, 8, 4, 4, 28, 1),
+    (2, 29, 37, 3, 5, 4, 7, 9),
+    (1, 29, 37, 3, 5, 4, 0, 29),
+]
+
+
+@pytest.mark.parametrize("case", DEFORM_ROW_CASES)
+def test_deform_kernel_rows_match_plain_and_the_whole_frame(cuda, case):
+    """A launch for output rows [y0, y0 + rows) from offsets and masks of
+    those rows equals those rows of a whole-frame launch bit for bit, and
+    deform_plain with the same y0 within the kernel's bar; offsets of 15 px
+    reach well past the rows and out of the frame."""
+    from tpuvc_torch.ops.deform import deform_conv2d, deform_kernel, deform_plain, lane_width
+
+    B, H, W, G, Cg, Og, y0, rows = case
+    x, off, masks, weight, bias = (t.to(cuda) for t in _deform_inputs(B, H, W, G, Cg, Og, 15.0,
+                                                                      seed=y0 + rows))
+    assert lane_width(Cg, x.data_ptr()) == (4 if Cg % 4 == 0 else 1)
+    full = deform_kernel(x, off, masks, weight, bias, G)
+    part = [t[:, y0:y0 + rows].contiguous() for t in (off, masks)]
+    before = deform_kernel.launches
+    out = deform_conv2d(x, part[0], part[1], weight, bias, G, 3, y0)
+    assert deform_kernel.launches == before + 1
+    ref = deform_plain(x, part[0], part[1], weight, bias, G, 3, y0)
+    torch.cuda.synchronize()
+    assert out.shape == (B, rows, W, G * Og)
+    assert torch.equal(out, full[:, y0:y0 + rows])
+    assert float((out - ref).abs().max()) <= 2e-5
+
+
+def test_deform_kernel_refuses_rows_outside_the_frame(cuda):
+    from tpuvc_torch.ops.deform import deform_kernel
+
+    x, off, masks, weight, bias = (t.to(cuda) for t in _deform_inputs(1, 8, 8, 2, 2, 2, 1.0))
+    with pytest.raises(ValueError, match="do not fit"):
+        deform_kernel(x, off[:, :4].contiguous(), masks[:, :4].contiguous(), weight, bias, 2,
+                      3, 5)
+    with pytest.raises(ValueError, match="do not fit"):
+        deform_kernel(x, off[:, :4].contiguous(), masks[:, :4].contiguous(), weight, bias, 2,
+                      3, -1)
+
+
 def test_deform_backward_matches_plain(cuda):
     from tpuvc_torch.ops.deform import deform_conv2d, deform_plain
 
@@ -925,3 +977,27 @@ def test_spatial_lhbdc_forward_over_4_ranks_on_card(cuda, tmp_path):
         torch.testing.assert_close(out["sizes"], ref["sizes"].cpu(), rtol=2e-4, atol=0)
         assert out["launches"] == len(out["warps"]) == 6
         assert {w[0] for w in out["warps"]} == {rows_of(w[2], 4, r)[0] for w in out["warps"]}
+
+
+def test_spatial_flowguided_forward_over_2_ranks_on_card(cuda, tmp_path):
+    """Two gloo ranks share the card (tests/torch_mesh_worker.py's
+    spatial_v4_card case): a narrow FlowGuidedB, heads seeded, at 128x128
+    with its rows sharded, against the unsharded forward on the card at
+    tpuvc's bars for its sharded forward; each rank launches the warp
+    kernel (two a level) and the deform kernel (one a level) at its own
+    first row."""
+    from torch_mesh_worker import run_ranks, spatial_card_v4_model, spatial_frames
+    from tpuvc_torch.parallel.spatial import rows_of
+
+    model = spatial_card_v4_model().to(cuda).eval()
+    xb, xc, xa = (torch.from_numpy(x).to(cuda) for x in spatial_frames(128, 128))
+    with torch.no_grad():
+        ref = model(xb, xa, xc, 1.0, 0.5, -0.5, 1, "dequantize")
+    ranks = run_ranks("spatial_v4_card", tmp_path, world=2)
+    for r, out in enumerate(ranks):
+        torch.testing.assert_close(out["x_hat"], ref["x_hat"].cpu(), rtol=0, atol=2e-4)
+        torch.testing.assert_close(out["sizes"], ref["sizes"].cpu(), rtol=2e-4, atol=0)
+        assert out["launches"] == {"warp": 6, "deform": 3}
+        assert len(out["warps"]) == 6 and len(out["deforms"]) == 3
+        for w in out["warps"] + out["deforms"]:
+            assert w[0] == rows_of(w[2], 2, r)[0]

@@ -9,10 +9,14 @@ unsharded ops and forwards.
   exactly where it moves, pools or selects values (pads, crops, shuffles,
   pools, fetches, the warp), within 2e-6 where it sums products (convs and
   bilinear resizes: the same op on a window of other height may block its
-  float32 sums otherwise). The cases hold 1-row shards under a stride-2 conv
-  (the case XLA's partitioner miscomputes: held to the unsharded conv, not
-  to tpuvc's sharded result), an empty shard (5 rows over 4 ranks) and a
-  reflected pad that reaches past the neighbouring rank;
+  float32 sums otherwise; the deform's plain version may block its per-tap
+  contraction by row count). The cases hold 1-row shards under a stride-2
+  conv (the case XLA's partitioner miscomputes: held to the unsharded conv,
+  not to tpuvc's sharded result), an empty shard (5 rows over 4 ranks), a
+  reflected pad that reaches past the neighbouring rank, transposed convs
+  (each rank's rows of the whole call: exact), the constant pad, the
+  checkerboard conv and masks on shards that start at odd rows, and deform
+  offsets that reach past the neighbouring rank and out of the frame;
 - the warp of a rank's own rows (``y0``) is bit for bit those rows of the
   whole-frame warp;
 - LHBDC(N=16) at 256x192, H-sharded, matches tpuvc's unsharded forward on
@@ -43,7 +47,7 @@ torch.set_num_threads(1)
 WORLDS = (2, 4)
 OPS = sorted(spatial_op_cases())
 # Ops that sum products; the others move values and must be exact.
-SUMMING = ("conv", "subpel", "up2", "upsample")
+SUMMING = ("conv", "subpel", "up2", "upsample", "deform")
 BAR = 2e-4  # tpuvc's TestSpatialSharding bars: x_hat absolute, sizes relative
 
 

@@ -27,8 +27,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def run_ranks(case: str, tmp_dir, world: int = 2, timeout: int = 240) -> list:
     """Run CASE in ``world`` processes; returns each rank's saved dict.
     Fails naming the rank whose process failed."""
-    import torch
+    return start_ranks(case, tmp_dir, world)(timeout)
 
+
+def start_ranks(case: str, tmp_dir, world: int = 2):
+    """Start CASE in ``world`` processes; returns ``wait(timeout)``, which
+    waits for them and returns each rank's saved dict, failing as
+    :func:`run_ranks` does."""
     env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(k, None)
@@ -36,12 +41,18 @@ def run_ranks(case: str, tmp_dir, world: int = 2, timeout: int = 240) -> list:
                                str(world), str(tmp_dir)], env=env, cwd=ROOT,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
-    outs = [p.communicate(timeout=timeout)[0] for p in procs]
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise AssertionError(f"rank {r} of {case} exited {p.returncode}:\n{out[-4000:]}")
-    return [torch.load(os.path.join(tmp_dir, f"{case}_{r}.pt"), weights_only=False)
-            for r in range(world)]
+
+    def wait(timeout: int = 240) -> list:
+        import torch
+
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} of {case} exited {p.returncode}:\n{out[-4000:]}")
+        return [torch.load(os.path.join(tmp_dir, f"{case}_{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+    return wait
 
 
 def frames(b: int, hw: int, seed: int):
@@ -258,14 +269,19 @@ def spatial_op_cases():
     """{name: (input (B, H, W, C), sharded op (sp, rows) -> rows, plain op (x) -> x)}:
     each sharded op of tpuvc_torch.parallel.spatial and its unsharded
     counterpart. The heights make shards of 1 row, uneven shards, an empty
-    shard (5 rows over 4 ranks), halos wider than a shard and a reflected pad
-    that reaches past the neighbouring rank."""
+    shard (5 rows over 4 ranks), halos wider than a shard, a reflected pad
+    that reaches past the neighbouring rank, shards that start at odd rows
+    (18 rows: 0, 5, 10, 15 over 4 ranks, 0, 9 over 2) and deform offsets
+    that reach past the neighbouring rank and out of the frame."""
+    import numpy as np
     import torch
     import torch.nn.functional as F
 
     from tpuvc_torch.models import layers as L
     from tpuvc_torch.models.unet import _maxpool2, _up2
-    from tpuvc_torch.ops import pad, resample
+    from tpuvc_torch.ops import checkerboard, pad, resample
+    from tpuvc_torch.ops.deform import DeformConv
+    from tpuvc_torch.parallel.spatial import take_rows
 
     def conv(k, stride, cin, cout, seed):
         g = torch.Generator().manual_seed(seed)
@@ -311,6 +327,36 @@ def spatial_op_cases():
     cases["unpad"] = ((1, 64, 6, 2), lambda sp, x: sp.unpad(x, (17, 5)),
                       lambda x: pad.unpad(x, (17, 5)))
     cases["relu_map"] = ((1, 7, 3, 2), lambda sp, x: x.map(F.relu), F.relu)
+    for k, H in ((3, 5), (3, 8), (5, 5), (5, 9)):
+        d = L.init_weights(L.Deconv(4, 3, kernel=k), torch.Generator().manual_seed(k + H))
+        with torch.no_grad():
+            d.bias.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(H))
+        cases[f"deconv{k}_h{H}"] = ((1, H, 4, 4), lambda sp, x, d=d: sp.deconv(x, d), d)
+    cb = L.init_weights(checkerboard.CheckerboardConv(4, 6), torch.Generator().manual_seed(5))
+    cases["conv_checkerboard5x5_odd_starts"] = ((1, 18, 5, 4), lambda sp, x: sp.conv(x, cb), cb)
+    for name in ("keep_anchor", "keep_non_anchor"):
+        cases[f"checkerboard_{name}_odd_starts"] = (
+            (2, 18, 5, 3), lambda sp, x, name=name: getattr(sp, name)(x),
+            getattr(checkerboard, name))
+    cases["pad_constant_x16"] = ((1, 17, 5, 2), lambda sp, x: sp.pad_to_multiple(
+        x, 16, mode="constant")[0], lambda x: pad.pad_to_multiple(x, 16, mode="constant")[0])
+    # 16 rows (4 a rank over 4): offsets of up to +-10 rows reach two ranks
+    # away and out of the frame
+    rng = np.random.default_rng(11)
+    for G, Cg, Og in ((2, 3, 2), (4, 4, 4)):
+        conv = L.init_weights(DeformConv(G * Cg, G * Og, groups=G),
+                              torch.Generator().manual_seed(G))
+        with torch.no_grad():
+            conv.bias.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(G))
+        off = torch.from_numpy((4 * rng.standard_normal((2, 16, 7, G * 18))).astype(np.float32))
+        off[..., 0::2] *= 2.5
+        msk = torch.from_numpy(rng.random((2, 16, 7, G * 9), dtype=np.float32))
+
+        def sharded(sp, x, conv=conv, off=off, msk=msk):
+            return sp.deform(x, take_rows(sp.mesh, off), take_rows(sp.mesh, msk), conv)
+
+        cases[f"deform_g{G}_reach_past_neighbour_and_frame"] = (
+            (2, 16, 7, G * Cg), sharded, lambda x, conv=conv, off=off, msk=msk: conv(x, off, msk))
     return cases
 
 
@@ -425,9 +471,86 @@ def case_spatial_card(mesh, inputs):
             "launches": warp.warp_kernel.launches, "warps": stats.warps}
 
 
+#: The v3/v4 spatial forwards' frame and runs: (family, spatial_forward's
+#: family_args). 192 rows: the /16 latents' 12 rows start at 0, 3, 6 and 9
+#: over 4 ranks, so the checkerboard parity of odd starts is exercised.
+V34_FRAME = (192, 128)
+V34_RUNS = (("flowguided_b", {"s": 1.0, "down_ratio": 1}),
+            ("flowguided_b", {"s": 1.0, "down_ratio": 4}),
+            ("deform_b", {"s": 1.0}))
+
+
+def v34_model(family: str, state=None):
+    """The narrow v4 (torch_params_common.V4_KW) or v3 (tests/
+    test_torch_deform_b.py's widths) model, with ``state`` loaded."""
+    from tpuvc_torch.models.deform_b import DeformB
+    from tpuvc_torch.models.flowguided_b import FlowGuidedB
+
+    if family == "flowguided_b":
+        model = FlowGuidedB(feature_channels=(16, 32, 48), N=32, M=32, levels=3,
+                            groups=(4, 4, 8, 16))
+    else:
+        model = DeformB(feature_channels=(8, 16, 24), N=32, M=32, levels=3, groups=(4, 4, 8, 16))
+    if state is not None:
+        model.load_state_dict(state, strict=True)
+    return model.eval()
+
+
+def case_spatial_v34(mesh, inputs):
+    """Each of V34_RUNS on the state dicts the test wrote, H-sharded over
+    the mesh: x_hat gathered, the bits, sizes, the stats."""
+    import torch
+
+    from tpuvc_torch.parallel import spatial as S
+
+    frames = [torch.from_numpy(x) for x in spatial_frames(*V34_FRAME)]
+    out = {}
+    for family, kw in V34_RUNS:
+        model = v34_model(family, inputs["state"][family])
+        stats = S.SpatialStats()
+        got = S.spatial_forward(mesh, model, *S.shard_spatial(mesh, frames), stats=stats, **kw)
+        out[(family, kw.get("down_ratio"))] = {
+            "x_hat": S.gather_rows(mesh, got["x_hat"]), "rows": tuple(got["x_hat"].x.shape),
+            "stats": stats, **{k: got[k] for k in ("bits", "size", "sizes", "rate")}}
+    return out
+
+
+def spatial_card_v4_model():
+    """Narrow FlowGuidedB (torch_params_common.V4_KW's widths), seeded, its
+    flow and offset heads seeded: the card test's v4 model."""
+    import torch
+
+    import chip_smoke
+
+    return chip_smoke.v4_model(torch, N=32, feature_channels=(16, 32, 48), levels=3,
+                               groups=(4, 4, 8, 16))
+
+
+def case_spatial_v4_card(mesh, inputs):
+    """spatial_card_v4_model H-sharded over the mesh on the card at 128x128:
+    x_hat gathered, the sizes, both kernels' launches, the warps' and
+    deform convs' rows."""
+    import torch
+
+    import chip_smoke
+    from tpuvc_torch.ops.precision import set_deterministic
+    from tpuvc_torch.parallel import spatial as S
+
+    set_deterministic()
+    model = spatial_card_v4_model().to(mesh.device).eval()
+    frames = [torch.from_numpy(x).to(mesh.device) for x in spatial_frames(128, 128)]
+    stats = S.SpatialStats()
+    chip_smoke.reset_launches()
+    out = S.spatial_forward(mesh, model, *S.shard_spatial(mesh, frames), stats=stats, s=1.0)
+    return {"x_hat": S.gather_rows(mesh, out["x_hat"]).cpu(), "sizes": out["sizes"].cpu(),
+            "launches": chip_smoke.read_launches(), "warps": stats.warps,
+            "deforms": stats.deforms}
+
+
 CASES = {"helpers": case_helpers, "coding": case_coding, "train": case_train,
          "coding_card": case_coding_card, "spatial_ops": case_spatial_ops,
-         "spatial_lhbdc": case_spatial_lhbdc, "spatial_card": case_spatial_card}
+         "spatial_lhbdc": case_spatial_lhbdc, "spatial_card": case_spatial_card,
+         "spatial_v34": case_spatial_v34, "spatial_v4_card": case_spatial_v4_card}
 
 
 def main(case: str, rank: int, world: int, tmp_dir: str) -> None:

@@ -60,6 +60,15 @@
 // 16-byte aligned, the same kernel runs with V=1: a lane is one channel.
 // Offsets are 32-bit: the wrapper keeps every tensor below 2^31 elements.
 //
+// Rows of the output: the kernel computes output rows [y0, y0 + H_out) of
+// the deform conv of a map x of H rows (y0 = 0, H_out = H for the whole
+// frame). offsets, masks and out hold just those rows; tap positions are
+// y0 + y + ky - pad + dy, and the zero padding applies at the frame's
+// border [0, H). A rank of an H-sharded forward
+// (tpuvc_torch.parallel.spatial) computes its own rows of a gathered x this
+// way. Each output pixel's arithmetic is the same as in the whole-frame
+// launch, so its rows equal those of the whole frame bit for bit.
+//
 // No tensor cores. Per group the product is [pixels x 9*Cg] x [9*Cg x Og]
 // with Og = 4-8, below wgmma's N and mma.sync's useful width; a dense
 // block-diagonal product over all groups would do G x the work; TF32
@@ -104,7 +113,8 @@ __host__ __device__ __forceinline__ int sample_stride(int C, int V) {
 
 // Block (C/V lanes, PX pixels); grid: any number of blocks, each walking
 // tiles blockIdx.x, blockIdx.x + gridDim.x, ... A lane holds NO outputs
-// (2 at the v4 levels, else MAXO).
+// (2 at the v4 levels, else MAXO). y is the output row, row0 + y the
+// frame's.
 template <int V, int NO>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
 deform_conv_nhwc_kernel(const float* __restrict__ x,
@@ -113,7 +123,8 @@ deform_conv_nhwc_kernel(const float* __restrict__ x,
                         const float* __restrict__ weight,
                         const float* __restrict__ bias,
                         float* __restrict__ out, int B, int H, int W, int G,
-                        int Cg, int Og, int K, int smem_w) {
+                        int Cg, int Og, int K, int row0, int H_out,
+                        int smem_w) {
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
   const int C = G * Cg;
@@ -151,7 +162,7 @@ deform_conv_nhwc_kernel(const float* __restrict__ x,
   const int k = (c0 - g * Cg) / V; // this lane's place in its group
   const int py = threadIdx.y;
   const int tiles_per_row = (W + PX - 1) / PX;
-  const int tiles = B * H * tiles_per_row;
+  const int tiles = B * H_out * tiles_per_row;
   const int PW = PANEL / PX > 1 ? PANEL / PX : 1;  // tiles a panel
   int q = 0;  // taps run so far: picks the sample buffer
 
@@ -159,13 +170,13 @@ deform_conv_nhwc_kernel(const float* __restrict__ x,
     // Tiles run in panels PW tiles wide, top to bottom, so the tiles in
     // flight cover a patch of the frame, not a band of whole rows: with
     // offsets of tens of pixels their corners then stay in L2.
-    const int b = tile / (H * tiles_per_row);
-    const int rem = tile - b * H * tiles_per_row;
-    const int panel = rem / (H * PW);
+    const int b = tile / (H_out * tiles_per_row);
+    const int rem = tile - b * H_out * tiles_per_row;
+    const int panel = rem / (H_out * PW);
     const int pw = min(PW, tiles_per_row - panel * PW);
-    const int in_panel = rem - panel * H * PW;
+    const int in_panel = rem - panel * H_out * PW;
     const int y = in_panel / pw;
-    const int row = b * H + y;
+    const int row = b * H_out + y;
     const int xq = (panel * PW + in_panel - y * pw) * PX + py;
     const bool active = xq < W;
     const int pix = row * W + xq;
@@ -191,7 +202,7 @@ deform_conv_nhwc_kernel(const float* __restrict__ x,
           // flow = offset + tap base, then the sample point, as the plain version
           float sx = __fadd_rn(static_cast<float>(xq),
                                __fadd_rn(dx, static_cast<float>(kx - pad)));
-          float sy = __fadd_rn(static_cast<float>(y),
+          float sy = __fadd_rn(static_cast<float>(row0 + y),
                                __fadd_rn(dy, static_cast<float>(ky - pad)));
           const float mt = m;
           // Points beyond a corner's reach of the frame sample only zeros; the
@@ -312,7 +323,8 @@ deform_conv_nhwc_kernel(const float* __restrict__ x,
 template <int V, int NO>
 int launch(const float* x, const float* offsets, const float* masks,
            const float* weight, const float* bias, float* out, int B, int H,
-           int W, int G, int Cg, int Og, int K, cudaStream_t stream) {
+           int W, int G, int Cg, int Og, int K, int row0, int H_out,
+           cudaStream_t stream) {
   const int lanes = G * Cg / V;
   if (lanes > MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
   const int PX = MAX_THREADS / lanes;
@@ -333,11 +345,12 @@ int launch(const float* x, const float* offsets, const float* masks,
   if (e == cudaSuccess) e = cudaGetDevice(&device);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int64_t tiles = static_cast<int64_t>(B) * H * ((W + PX - 1) / PX);
+  const int64_t tiles = static_cast<int64_t>(B) * H_out * ((W + PX - 1) / PX);
   const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const int grid = static_cast<int>(tiles < resident ? tiles : resident);
   deform_conv_nhwc_kernel<V, NO><<<grid, block, smem_bytes, stream>>>(
-      x, offsets, masks, weight, bias, out, B, H, W, G, Cg, Og, K, smem_w);
+      x, offsets, masks, weight, bias, out, B, H, W, G, Cg, Og, K, row0, H_out,
+      smem_w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -345,24 +358,27 @@ int launch(const float* x, const float* offsets, const float* masks,
 
 extern "C" {
 
-// x (B,H,W,G*Cg), offsets (B,H,W,G*K*K*2), masks (B,H,W,G*K*K),
+// x (B,H,W,G*Cg), offsets (B,H_out,W,G*K*K*2), masks (B,H_out,W,G*K*K),
 // weight (K*K,Cg,G*Og): per tap and input channel of a group, the group's
-// outputs in output-channel order; bias (G*Og) and out (B,H,W,G*Og):
-// contiguous float32 on the current device. Launches on `stream` (a
+// outputs in output-channel order; bias (G*Og) and out (B,H_out,W,G*Og):
+// contiguous float32 on the current device; out holds output rows
+// [y0, y0 + H_out) of the frame's, 0 <= y0 <= y0 + H_out <= H. Launches on `stream` (a
 // cudaStream_t) and returns the cudaGetLastError() code of the launch (0 on
 // success; cudaErrorInvalidValue where G*Cg/V > 512 lanes, V = 4 for Cg % 4
 // == 0 and x 16-byte aligned, else 1).
 int tpuvc_deform_conv_nhwc(const void* x, const void* offsets,
                            const void* masks, const void* weight,
                            const void* bias, void* out, int B, int H, int W,
-                           int G, int Cg, int Og, int K, void* stream) {
-  if (static_cast<int64_t>(B) * H * W == 0 || G == 0 || Og == 0) return 0;
+                           int G, int Cg, int Og, int K, int y0, int H_out,
+                           void* stream) {
+  if (y0 < 0 || H_out < 0 || y0 + H_out > H) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<int64_t>(B) * H_out * W == 0 || G == 0 || Og == 0) return 0;
   const int V = Cg % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 ? 4 : 1;
   const bool two = (Og + Cg / V - 1) / (Cg / V) <= 2;  // outputs per lane
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto run = [&](auto launcher) {
     return launcher(f(x), f(offsets), f(masks), f(weight), f(bias),
-                    static_cast<float*>(out), B, H, W, G, Cg, Og, K,
+                    static_cast<float*>(out), B, H, W, G, Cg, Og, K, y0, H_out,
                     static_cast<cudaStream_t>(stream));
   };
   if (V == 4) return two ? run(launch<4, 2>) : run(launch<4, MAXO>);

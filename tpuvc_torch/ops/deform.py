@@ -14,6 +14,13 @@ PyTorch transcription of tpuvc's tap-unrolled formulation
 ``_deform_taps(force_xla=True)``. Any other device raises: nothing falls back
 to the plain version quietly. Gradients on CUDA go through autograd of the
 plain version, as tpuvc's custom VJP goes through its XLA formulation.
+
+``y0`` (every entry point's last argument, 0 by default) computes only
+output rows ``[y0, y0 + H_out)``, ``H_out`` being the offsets' height: the
+offsets and masks hold just those rows, x all of its H rows, taps sample
+the whole frame and the zero padding is the frame's. The kernel's rows equal
+those rows of a whole-frame launch bit for bit (a rank of an H-sharded
+forward, tpuvc_torch.parallel.spatial).
 """
 
 from __future__ import annotations
@@ -32,12 +39,14 @@ _SRC = os.path.join(
 _lib = None
 
 
-def _sample_zero_pad(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def _sample_zero_pad(img: torch.Tensor, flow: torch.Tensor, y0: int = 0) -> torch.Tensor:
     """Bilinear sample of img (B,H,W,C) at (col + flow_x, row + flow_y), with
-    zero padding outside the frame (tpuvc's ``_warp_zero_pad``, op for op)."""
+    zero padding outside the frame (tpuvc's ``_warp_zero_pad``, op for op),
+    for output rows ``[y0, y0 + flow rows)``."""
     B, H, W, C = img.shape
+    Ho = flow.shape[1]
     xs = torch.arange(W, dtype=flow.dtype, device=flow.device)
-    ys = torch.arange(H, dtype=flow.dtype, device=flow.device)
+    ys = torch.arange(y0, y0 + Ho, dtype=flow.dtype, device=flow.device)
     x = xs[None, None, :] + flow[..., 0]
     y = ys[None, :, None] + flow[..., 1]
     x0 = torch.floor(x)
@@ -50,8 +59,8 @@ def _sample_zero_pad(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
         xc = torch.clamp(xi, 0, W - 1).long()
         yc = torch.clamp(yi, 0, H - 1).long()
-        idx = (yc * W + xc).reshape(B, H * W, 1).expand(B, H * W, C)
-        v = torch.gather(flat, 1, idx).reshape(B, H, W, C)
+        idx = (yc * W + xc).reshape(B, Ho * W, 1).expand(B, Ho * W, C)
+        v = torch.gather(flat, 1, idx).reshape(B, Ho, W, C)
         return v * (w * valid)[..., None]
 
     return (
@@ -62,9 +71,10 @@ def _sample_zero_pad(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _check_shapes(x, offsets, masks, weight, groups, kernel):
+def _check_shapes(x, offsets, masks, weight, groups, kernel, y0: int = 0):
     B, H, W, C = x.shape
     T = kernel * kernel
+    Ho = offsets.shape[1] if offsets.dim() == 4 else -1
     C_out, Cg = weight.shape[:2]
     if C % groups or C_out % groups or Cg != C // groups:
         raise ValueError(
@@ -73,14 +83,16 @@ def _check_shapes(x, offsets, masks, weight, groups, kernel):
         )
     if tuple(weight.shape[2:]) != (kernel, kernel):
         raise ValueError(f"deform: weight {tuple(weight.shape)} is not {kernel}x{kernel}")
-    if tuple(offsets.shape) != (B, H, W, groups * T * 2):
-        raise ValueError(f"deform: offsets {tuple(offsets.shape)} != {(B, H, W, groups * T * 2)}")
-    if masks is not None and tuple(masks.shape) != (B, H, W, groups * T):
-        raise ValueError(f"deform: masks {tuple(masks.shape)} != {(B, H, W, groups * T)}")
+    if tuple(offsets.shape) != (B, Ho, W, groups * T * 2) or not 0 <= y0 <= y0 + Ho <= H:
+        raise ValueError(f"deform: offsets {tuple(offsets.shape)} at row {y0} do not fit a "
+                         f"deform of {tuple(x.shape)}: {(B, 'H_out', W, groups * T * 2)} with "
+                         f"0 <= y0, y0 + H_out <= {H}")
+    if masks is not None and tuple(masks.shape) != (B, Ho, W, groups * T):
+        raise ValueError(f"deform: masks {tuple(masks.shape)} != {(B, Ho, W, groups * T)}")
 
 
 def deform_plain(x, offsets, masks, weight, bias, groups: int,
-                 kernel: int = 3) -> torch.Tensor:
+                 kernel: int = 3, y0: int = 0) -> torch.Tensor:
     """Plain PyTorch modulated deformable conv on any device; the kernel's
     reference.
 
@@ -88,36 +100,38 @@ def deform_plain(x, offsets, masks, weight, bias, groups: int,
     k = ky*K + kx (torchvision's layout); masks (B,H,W,G*K*K) or None;
     weight (C_out, C//G, K, K), output slice g taking input slice g; bias
     (C_out,) or None. Taps unrolled, the group contraction per tap, the
-    bias added after, all in float32.
+    bias added after, all in float32. With ``y0``, offsets and masks of
+    H_out rows give output rows ``[y0, y0 + H_out)``.
     """
-    _check_shapes(x, offsets, masks, weight, groups, kernel)
+    _check_shapes(x, offsets, masks, weight, groups, kernel, y0)
     B, H, W, C = x.shape
+    Ho = offsets.shape[1]
     K, G = kernel, groups
     T = K * K
     Cg = C // G
     C_out = weight.shape[0]
     Og = C_out // G
     xg = x.reshape(B, H, W, G, Cg).permute(0, 3, 1, 2, 4).reshape(B * G, H, W, Cg)
-    off = offsets.reshape(B, H, W, G, T, 2).permute(0, 3, 1, 2, 4, 5)
-    off = off.reshape(B * G, H, W, T, 2)
+    off = offsets.reshape(B, Ho, W, G, T, 2).permute(0, 3, 1, 2, 4, 5)
+    off = off.reshape(B * G, Ho, W, T, 2)
     if masks is not None:
-        m = masks.reshape(B, H, W, G, T).permute(0, 3, 1, 2, 4).reshape(B * G, H, W, T)
+        m = masks.reshape(B, Ho, W, G, T).permute(0, 3, 1, 2, 4).reshape(B * G, Ho, W, T)
     else:
         m = torch.ones(off.shape[:-1], dtype=x.dtype, device=x.device)
     # (C_out, Cg, K, K) -> per-tap grouped weights (T, Cg, G, Og)
     wk = weight.reshape(G, Og, Cg, T).permute(3, 2, 0, 1)
     pad = K // 2
-    acc = torch.zeros((B, G, H, W, Og), dtype=x.dtype, device=x.device)
+    acc = torch.zeros((B, G, Ho, W, Og), dtype=x.dtype, device=x.device)
     for k in range(T):
         ky, kx = divmod(k, K)
         # torchvision offsets are (dy, dx); the sampler takes (dx, dy).
         flow = torch.stack(
             [off[..., k, 1] + (kx - pad), off[..., k, 0] + (ky - pad)], dim=-1
         )
-        sampled = _sample_zero_pad(xg, flow) * m[..., k][..., None]
-        sampled = sampled.reshape(B, G, H, W, Cg)
+        sampled = _sample_zero_pad(xg, flow, y0) * m[..., k][..., None]
+        sampled = sampled.reshape(B, G, Ho, W, Cg)
         acc = acc + torch.einsum("bghwc,cgo->bghwo", sampled, wk[k])
-    out = acc.permute(0, 2, 3, 1, 4).reshape(B, H, W, C_out)
+    out = acc.permute(0, 2, 3, 1, 4).reshape(B, Ho, W, C_out)
     if bias is not None:
         out = out + bias
     return out
@@ -133,7 +147,7 @@ def _get_lib():
         )
         fn = lib.tpuvc_deform_conv_nhwc
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         _lib = lib
     return _lib
 
@@ -151,10 +165,11 @@ def lane_width(Cg: int, x_ptr: int) -> int:
 
 
 def deform_kernel(x, offsets, masks, weight, bias, groups: int,
-                  kernel: int = 3) -> torch.Tensor:
+                  kernel: int = 3, y0: int = 0) -> torch.Tensor:
     """Launch the CUDA deform kernel (arguments as :func:`deform_plain`;
-    masks and bias required). All tensors float32 on one CUDA device.
-    Raises on anything the kernel does not take."""
+    masks and bias required): output rows [y0, y0 + H_out), (B, H_out, W,
+    C_out), H_out the offsets' height. All tensors float32 on one CUDA
+    device. Raises on anything the kernel does not take."""
     tensors = (x, offsets, masks, weight, bias)
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError(
@@ -165,14 +180,15 @@ def deform_kernel(x, offsets, masks, weight, bias, groups: int,
         raise ValueError(f"deform_kernel takes float32, got {[t.dtype for t in tensors]}")
     if x.dim() != 4:
         raise ValueError(f"deform_kernel takes NHWC, got {tuple(x.shape)}")
-    _check_shapes(x, offsets, masks, weight, groups, kernel)
+    _check_shapes(x, offsets, masks, weight, groups, kernel, y0)
     B, H, W, C = x.shape
+    Ho = offsets.shape[1]
     G, K = groups, kernel
     C_out, Cg = weight.shape[:2]
     Og = C_out // G
     if tuple(bias.shape) != (C_out,):
         raise ValueError(f"deform_kernel: bias {tuple(bias.shape)} != {(C_out,)}")
-    if max(x.numel(), offsets.numel(), B * H * W * C_out) >= 2**31:
+    if max(x.numel(), offsets.numel(), B * Ho * W * C_out) >= 2**31:
         raise ValueError(f"deform_kernel indexes in int32; {tuple(offsets.shape)} is too large")
     x, offsets, masks = x.contiguous(), offsets.contiguous(), masks.contiguous()
     lanes = C // lane_width(Cg, x.data_ptr())
@@ -188,12 +204,14 @@ def deform_kernel(x, offsets, masks, weight, bias, groups: int,
     # outputs of every group side by side
     w_t = weight.reshape(C_out, Cg, K * K).permute(2, 1, 0).contiguous()
     bias = bias.contiguous()
-    out = torch.empty((B, H, W, C_out), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, Ho, W, C_out), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:  # nothing to launch
+        return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _get_lib().tpuvc_deform_conv_nhwc(
             x.data_ptr(), offsets.data_ptr(), masks.data_ptr(), w_t.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), B, H, W, G, Cg, Og, K, stream,
+            bias.data_ptr(), out.data_ptr(), B, H, W, G, Cg, Og, K, y0, Ho, stream,
         )
     if rc != 0:
         raise RuntimeError(f"deform kernel launch failed: cudaError {rc}")
@@ -209,10 +227,10 @@ class _DeformKernelFn(torch.autograd.Function):
     """Kernel forward; backward by autograd of the plain formulation."""
 
     @staticmethod
-    def forward(ctx, x, offsets, masks, weight, bias, groups, kernel):
+    def forward(ctx, x, offsets, masks, weight, bias, groups, kernel, y0):
         ctx.save_for_backward(x, offsets, masks, weight, bias)
-        ctx.args = (groups, kernel)
-        return deform_kernel(x, offsets, masks, weight, bias, groups, kernel)
+        ctx.args = (groups, kernel, y0)
+        return deform_kernel(x, offsets, masks, weight, bias, groups, kernel, y0)
 
     @staticmethod
     def backward(ctx, grad):
@@ -223,26 +241,26 @@ class _DeformKernelFn(torch.autograd.Function):
             out = deform_plain(*inputs, *ctx.args)
             wanted = [t for t in inputs if t.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, grad))
-        return (*(next(grads) if n else None for n in needs), None, None)
+        return (*(next(grads) if n else None for n in needs), None, None, None)
 
 
 def deform_conv2d(x, offsets, masks, weight, bias, groups: int,
-                  kernel: int = 3) -> torch.Tensor:
+                  kernel: int = 3, y0: int = 0) -> torch.Tensor:
     """Modulated deformable conv (arguments as :func:`deform_plain`).
 
     CPU tensors take :func:`deform_plain`; CUDA tensors the kernel.
     """
     if x.device.type == "cpu":
-        return deform_plain(x, offsets, masks, weight, bias, groups, kernel)
+        return deform_plain(x, offsets, masks, weight, bias, groups, kernel, y0)
     if masks is None:
-        masks = torch.ones((*x.shape[:3], groups * kernel * kernel),
+        masks = torch.ones((*offsets.shape[:3], groups * kernel * kernel),
                            dtype=x.dtype, device=x.device)
     if bias is None:
         bias = torch.zeros((weight.shape[0],), dtype=x.dtype, device=x.device)
     args = (x, offsets, masks, weight, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _DeformKernelFn.apply(*args, groups, kernel)
-    return deform_kernel(*args, groups, kernel)
+        return _DeformKernelFn.apply(*args, groups, kernel, y0)
+    return deform_kernel(*args, groups, kernel, y0)
 
 
 class DeformConv(nn.Module):
@@ -265,6 +283,6 @@ class DeformConv(nn.Module):
         lecun_normal_(self.weight, generator)
         self.bias.zero_()
 
-    def forward(self, x, offsets, masks=None):
+    def forward(self, x, offsets, masks=None, y0: int = 0):
         return deform_conv2d(x, offsets, masks, self.weight, self.bias,
-                             self.groups, self.kernel)
+                             self.groups, self.kernel, y0)

@@ -1,6 +1,6 @@
 """Spatial sharding: the rows of NHWC frames split across the ranks of a mesh
-(port of tpuvc.parallel.mesh.shard_spatial and of the H-sharded LHBDC
-forward tpuvc's tests run through it).
+(port of tpuvc.parallel.mesh.shard_spatial and of the H-sharded forwards of
+LHBDC, FlowGuidedB and DeformB that XLA's partitioner gives tpuvc).
 
 tpuvc places frames with H sharded over its 1-D mesh and XLA's SPMD
 partitioner inserts a halo exchange for every conv and a collective for
@@ -22,15 +22,23 @@ from the ranks that own them, here, explicitly:
   (the warps' references); :func:`all_reduce_sum` adds the bits.
 - Ops (:class:`Spatial`). Each follows one recipe: work out which input
   rows its canonical output rows need, fetch them, run the port's own op
-  on that window, crop. Pointwise and per-pixel ops (activations, GDN, the
-  entropy models in ``dequantize`` mode, channel concat and chunk) run on
-  the local rows as they are.
-- The warp. A rank gathers the whole reference and warps only its own
-  output rows: ``ops.warp.warp(..., y0=first row)``, the CUDA kernel on a
-  card, each row bit for bit that row of the whole-frame warp.
+  on that window, crop: convs (the checkerboard's masked one too), pixel
+  shuffle, pools, bilinear resizes, pads and crops.
+  Pointwise and per-pixel ops (activations, GDN, gains, the entropy models
+  in ``dequantize`` mode, channel concat and chunk) run on the local rows as
+  they are; the checkerboard masks take the parity of the rank's first row.
+- Transposed convs run whole on every rank (the input gathered, the
+  unsharded call, the rank's rows kept): cuDNN sums a window's transposed
+  conv in another order than the frame's (``Spatial.deconv``).
+- The warp and the deform conv. Flows and deform offsets reach anywhere,
+  so a rank gathers the whole reference (or feature map) and computes only
+  its own output rows: ``ops.warp.warp(..., y0)``,
+  ``ops.deform.deform_conv2d(..., y0)`` with y0 its first row, the CUDA
+  kernels on a card, each row bit for bit that row of the whole frame's.
 - Module forwards, in the order of each module's own ``forward``, on the
-  module's own parameters: SPyNet, its BasicBlock, MaskUNet,
-  MeanScaleHyperprior and LHBDC (:func:`spatial_forward`).
+  module's own parameters: SPyNet, MaskUNet, MeanScaleHyperprior and LHBDC;
+  MSFeature, FlowNET, TemporalEnc, the Reconstructors, CondELIC,
+  OffsetDiversity, FlowGuidedB and DeformB (:func:`spatial_forward`).
 
 Ranks that share a card use gloo, which moves CUDA tensors through host
 copies; NCCL moves them where each rank has its own card. The forward is
@@ -47,10 +55,18 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from tpuvc_torch.entropy.emath import likelihood_to_bits, per_sample_bits
+from tpuvc_torch.entropy.quant import quantize, ste_round
 from tpuvc_torch.models import layers as L
+from tpuvc_torch.models.cond_elic import _ChannelContext, _EntropyParams, _Head, _SynthStage
+from tpuvc_torch.models.deform_b import DeformB, _head_to_deform
+from tpuvc_torch.models.flowguided_b import FlowGuidedB, convert_scales
+from tpuvc_torch.models.lhbdc import LHBDC
+from tpuvc_torch.models.ms_feature import _ConvRBB
 from tpuvc_torch.models.spynet import preprocess
 from tpuvc_torch.models.unet import _maxpool2
+from tpuvc_torch.ops import checkerboard
 from tpuvc_torch.ops import warp as warp_ops
+from tpuvc_torch.ops.checkerboard import CheckerboardConv
 from tpuvc_torch.ops.pad import _pad_index
 from tpuvc_torch.ops.resample import _resize_matrix, _resize_matrix_on, avg_pool2d, pixel_shuffle
 from tpuvc_torch.parallel.mesh import Mesh, _staged, _tree_map
@@ -118,16 +134,21 @@ def shard_spatial(mesh: Mesh, tree):
 
 @dataclasses.dataclass
 class SpatialStats:
-    """What one rank's sharded ops moved and warped: the bytes it received
-    from other ranks over its exchanges with them (``fetches``), each warp
-    as (y0, rows, reference rows, batch, channels), and the warp samples
-    whose row lies in another rank's rows out of all its samples."""
+    """What one rank's sharded ops moved, warped and deformed: the bytes it
+    received from other ranks over its exchanges with them (``fetches``),
+    each warp and each deform conv as (y0, rows, input rows, batch, input
+    channels), the warp samples whose row lies in another rank's rows out
+    of all its samples, and the deform taps whose sample row (the upper of
+    its two) lies in another rank's rows out of all its taps."""
 
     bytes_fetched: int = 0
     fetches: int = 0
     warps: list = dataclasses.field(default_factory=list)
     samples: int = 0
     samples_elsewhere: int = 0
+    deforms: list = dataclasses.field(default_factory=list)
+    taps: int = 0
+    taps_elsewhere: int = 0
 
 
 def _owner(rows: np.ndarray, H: int, n: int) -> np.ndarray:
@@ -163,22 +184,28 @@ def fetch_rows(mesh: Mesh, shard: Rows, need, stats: SpatialStats | None = None,
     evaluates alike, so each knows what to send to whom without a
     collective. Each rank then sends every peer, in ascending rank order,
     one message of the rows it owns of that peer's list, and receives one
-    from each peer it needs rows from (``tag`` names the exchange)."""
+    from each peer it needs rows from (``tag`` names the exchange). A list
+    of consecutive rows of this rank's own comes back as a view of its
+    shard, in the shard's memory layout (so a one-rank forward runs the
+    unsharded one's kernels)."""
     H, n, me = shard.H, mesh.size, mesh.rank
     lo, _ = rows_of(H, n, me)
     x = shard.x
     mine = np.asarray(need(me), dtype=np.int64).reshape(-1)
     if mine.size and (mine.min() < 0 or mine.max() >= H):
         raise ValueError(f"rows outside [0, {H}) asked for")
-    out = x.new_empty((x.shape[0], mine.size, *x.shape[2:]))
     owners = _owner(mine, H, n)
 
     def index(a):
         return torch.as_tensor(a, dtype=torch.long, device=x.device)
 
     here = np.nonzero(owners == me)[0]
-    if here.size:
-        out.index_copy_(1, index(here), x.index_select(1, index(mine[here] - lo)))
+    if mine.size and here.size == mine.size and bool(np.all(np.diff(mine) == 1)):
+        out = x.narrow(1, int(mine[0]) - lo, mine.size)
+    else:
+        out = x.new_empty((x.shape[0], mine.size, *x.shape[2:]))
+        if here.size:
+            out.index_copy_(1, index(here), x.index_select(1, index(mine[here] - lo)))
     if n == 1 or mesh.group is None:
         return out
     ops, recvs = [], []
@@ -237,7 +264,7 @@ def _span(a: int, b: int, lo: int, hi: int, H: int) -> np.ndarray:
 
 class Spatial:
     """The sharded ops of this rank over ``mesh``; ``stats`` (a
-    :class:`SpatialStats`) adds up what they fetch and warp."""
+    :class:`SpatialStats`) adds up what they fetch, warp and deform."""
 
     def __init__(self, mesh: Mesh, stats: SpatialStats | None = None):
         self.mesh, self.stats = mesh, stats
@@ -254,19 +281,31 @@ class Spatial:
         """The recipe: output rows ``[a, b)`` of ``H_out`` need input rows
         ``span(a, b)``; ``op(window, a, b)`` computes them."""
         def need(r):
-            a, b = self.rows(H_out, r)
-            return span(a, b)
+            return span(*self.rows(H_out, r))
 
         a, b = self.rows(H_out)
         return Rows(op(self.fetch(x, need), a, b), H_out)
 
     # convolutions -------------------------------------------------------------
 
-    def conv(self, x: Rows, conv: L.Conv) -> Rows:
-        """``layers.Conv`` (``conv2d_nhwc``, pad k//2) on its own
-        parameters: output rows ``[a, b)`` read input rows
-        ``[a*s - p, (b-1)*s - p + k)``, zeros outside the frame."""
-        weight, bias, stride = conv.weight, conv.bias, conv.stride
+    def conv(self, x: Rows, conv) -> Rows:
+        """``layers.Conv`` (``conv2d_nhwc``, pad k//2) or
+        ``CheckerboardConv`` (its masked kernel, float32 whatever the
+        policy, as its forward) on its own parameters: output rows
+        ``[a, b)`` read input rows ``[a*s - p, (b-1)*s - p + k)``, zeros
+        outside the frame."""
+        if isinstance(conv, CheckerboardConv):
+            weight, bias, stride = conv.weight * conv.mask, conv.bias, 1
+
+            def fn(win, pad):
+                y = F.conv2d(win.permute(0, 3, 1, 2), weight, padding=pad)
+                return y.permute(0, 2, 3, 1) + bias
+        else:
+            weight, bias, stride = conv.weight, conv.bias, conv.stride
+
+            def fn(win, pad):
+                return L.conv2d_nhwc(win, weight, bias, stride, pad)
+
         k = weight.shape[-1]
         p = k // 2
         H, W = x.H, x.x.shape[2]
@@ -280,12 +319,25 @@ class Spatial:
             if a >= b:
                 return win.new_zeros((win.shape[0], 0, W_out, weight.shape[0]),
                                      dtype=torch.float32)
+            if (a, b) == (0, H_out):  # the whole frame: the unsharded call
+                return fn(win, p)
             top = a * stride - p
             bottom = (b - 1) * stride - p + k
-            win = F.pad(win, (0, 0, 0, 0, max(0, -top), max(0, bottom - H)))
-            return L.conv2d_nhwc(win, weight, bias, stride, (0, p))
+            return fn(F.pad(win, (0, 0, 0, 0, max(0, -top), max(0, bottom - H))), (0, p))
 
         return self._windowed(x, H_out, span, op)
+
+    def deconv(self, x: Rows, deconv: L.Deconv) -> Rows:
+        """``layers.Deconv`` (a stride-s transposed conv) of the whole input
+        on every rank, which keeps its own rows: the unsharded forward's own
+        call. Output rows ``[a, b)`` need only input rows ``[ceil((a + p - k
+        + 1)/s), floor((b - 1 + p)/s)]`` (p = k//2), but cuDNN sums a
+        window's transposed conv in another order than the whole frame's at
+        every shape of the v3/v4 codecs on the H100, and in their forwards
+        those sums flip quantized latents (PERF.md, PR 14)."""
+        full = self.fetch(x, lambda r: np.arange(x.H))
+        a, b = self.rows(x.H * deconv.stride)
+        return Rows(deconv(full)[:, a:b], x.H * deconv.stride)
 
     def pixel_shuffle(self, x: Rows, r: int) -> Rows:
         """Output row y is input row y // r."""
@@ -351,17 +403,24 @@ class Spatial:
     # padding ------------------------------------------------------------------
 
     def pad_to_multiple(self, x: Rows, multiple: int = 64, mode: str = "reflect"):
-        """``pad.pad_to_multiple`` (``reflect`` or ``edge``): output row i
+        """``pad.pad_to_multiple``. ``reflect`` or ``edge``: output row i
         of H + ph is input row ``_pad_index(H, ph)[i]``, which a reflected
         pad takes from deep inside the frame, from other ranks' rows.
-        Returns (padded rows, (H, W))."""
+        ``constant``: output rows ``[a, b)`` are input rows
+        ``[a, min(b, H))`` and zeros below. Returns (padded rows, (H, W))."""
         h, w = x.H, x.x.shape[2]
         ph = (multiple - h % multiple) % multiple
         pw = (multiple - w % multiple) % multiple
-        if ph:
+        if ph and mode == "constant":
+            x = self._windowed(x, h + ph, lambda a, b: _span(a, b, a, b, h),
+                               lambda win, a, b: F.pad(win, (0, 0, 0, 0, 0,
+                                                             max(0, b - max(a, h)))))
+        elif ph:
             idx = _pad_index(h, ph, mode, "cpu").numpy()
             x = self._windowed(x, h + ph, lambda a, b: idx[a:b], lambda win, a, b: win)
-        if pw:
+        if pw and mode == "constant":
+            x = x.map(lambda t: F.pad(t, (0, 0, 0, pw)))
+        elif pw:
             x = x.map(lambda t: t.index_select(-2, _pad_index(w, pw, mode, t.device)))
         return x, (h, w)
 
@@ -402,12 +461,58 @@ class Spatial:
         s.samples += y.numel()
         s.samples_elsewhere += int(((y < y0) | (y >= y1)).sum())
 
+    # the deform conv ----------------------------------------------------------
+
+    def deform(self, x: Rows, offsets: Rows, masks: Rows, conv) -> Rows:
+        """``conv`` (an ``ops.deform.DeformConv``) of this rank's output
+        rows: x gathered whole (offsets centred on a flow reach anywhere,
+        as flows do), the offsets' and masks' own rows, ``y0`` the first of
+        them. On CUDA tensors the kernel launches (or raises); a rank
+        without rows launches nothing."""
+        if not x.H == offsets.H == masks.H:
+            raise ValueError(f"a deform of H={x.H} by offsets of H={offsets.H}, "
+                             f"masks of H={masks.H}")
+        full = gather_rows(self.mesh, x, self.stats)
+        y0, y1 = self.rows(x.H)
+        if y0 == y1:
+            return Rows(full.new_zeros((full.shape[0], 0, full.shape[2], conv.weight.shape[0])),
+                        x.H)
+        if self.stats is not None:
+            self._count_taps(offsets.x, y0, y1, full.shape, conv.kernel)
+        return Rows(conv(full, offsets.x, masks.x, y0=y0), x.H)
+
+    def _count_taps(self, offsets, y0: int, y1: int, x_shape, K: int) -> None:
+        """Add the deform of rows [y0, y1) to the stats, and how many of its
+        taps sample (at their upper row) a row of the frame outside them."""
+        B, H, W, C = x_shape
+        dy = offsets[..., 0::2].reshape(*offsets.shape[:3], -1, K * K)
+        base = torch.arange(K * K, device=offsets.device) // K - K // 2
+        rows = torch.arange(y0, y1, device=offsets.device)[None, :, None, None, None]
+        y = torch.floor(rows + base + dy)
+        s = self.stats
+        s.deforms.append((y0, y1 - y0, H, B, C))
+        s.taps += y.numel()
+        s.taps_elsewhere += int((((y < y0) | (y >= y1)) & (y >= 0) & (y < H)).sum())
+
+    # checkerboard masks ------------------------------------------------------
+
+    def keep_anchor(self, x: Rows) -> Rows:
+        """``checkerboard.keep_anchor`` of the rank's rows, at the parity of
+        their first row."""
+        y0 = self.rows(x.H)[0]
+        return x.map(lambda t: checkerboard.keep_anchor(t, y0))
+
+    def keep_non_anchor(self, x: Rows) -> Rows:
+        """``checkerboard.keep_non_anchor`` likewise."""
+        y0 = self.rows(x.H)[0]
+        return x.map(lambda t: checkerboard.keep_non_anchor(t, y0))
+
     # bits ------------------------------------------------------------------
 
     def bits(self, liks: list[torch.Tensor]) -> tuple[list, list]:
         """(``likelihood_to_bits`` of each likelihood tensor, its
-        ``per_sample_bits``) over all ranks: the local sums, then one
-        all-reduce."""
+        ``per_sample_bits``) over all ranks: the sums of each rank's own
+        rows, then one all-reduce."""
         local = torch.cat([torch.stack([likelihood_to_bits(p) for p in liks])]
                           + [per_sample_bits(p) for p in liks])
         total = all_reduce_sum(self.mesh, local)
@@ -419,11 +524,46 @@ class Spatial:
 # -- module forwards ------------------------------------------------------------------
 
 
+def _per_pixel(fn, *rows: Rows) -> tuple:
+    """``fn`` of the rows' tensors (the entropy models, the offset heads'
+    preparation: per pixel), each of its outputs as :class:`Rows`."""
+    return tuple(Rows(t, rows[0].H) for t in fn(*(r.x for r in rows)))
+
+
+def _chain(sp: Spatial, module, x: Rows, names, act=None) -> Rows:
+    """``module``'s submodules ``names`` in turn, ``act`` after each but
+    the last."""
+    for i, name in enumerate(names):
+        x = layer(sp, getattr(module, name), x)
+        if act is not None and i < len(names) - 1:
+            x = x.map(act)
+    return x
+
+
+def _blocks(n: int) -> list:
+    return [f"ResidualBottleneckBlock_{i}" for i in range(n)]
+
+
 def layer(sp: Spatial, module, x: Rows) -> Rows:
-    """One of the codec transforms' layers (models/layers.py), its
-    ``forward`` with the row-mixing ops sharded."""
-    if isinstance(module, L.Conv):
+    """One of the codec transforms' layers (models/layers.py and the v3/v4
+    stages built of them), its ``forward`` with the row-mixing ops
+    sharded."""
+    if isinstance(module, (L.Conv, CheckerboardConv)):
         return sp.conv(x, module)
+    if isinstance(module, L.Deconv):
+        return sp.deconv(x, module)
+    if isinstance(module, L.ResidualBottleneckBlock):
+        return _chain(sp, module, x, ("Conv_0", "Conv_1", "Conv_2"), F.relu).map(torch.add, x)
+    if isinstance(module, _ConvRBB):
+        return _chain(sp, module, x, ["Conv_0"] + _blocks(module.blocks))
+    if isinstance(module, _SynthStage):
+        return _chain(sp, module, x, ["Conv_0"] + _blocks(3) + ["Deconv_0"])
+    if isinstance(module, _Head):
+        return _chain(sp, module, x, ["Conv_0"] + _blocks(3) + ["Conv_1"])
+    if isinstance(module, _EntropyParams):
+        return _chain(sp, module, x, ("Conv_0", "Conv_1", "Conv_2"), L.leaky_relu)
+    if isinstance(module, _ChannelContext):
+        return _chain(sp, module, x, ("Conv_0", "Conv_1", "Conv_2"), F.relu)
     if isinstance(module, L.SubpelConv):
         return sp.pixel_shuffle(sp.conv(x, module.Conv_0), module.r)
     if isinstance(module, L.GDN):
@@ -456,17 +596,20 @@ def hyperprior_forward(sp: Spatial, m, x: Rows, mode: str = "dequantize") -> dic
         z = layer(sp, c, z)
         if i < len(m.h_a_convs) - 1:
             z = z.map(L.leaky_relu)
-    z_hat, z_lik = m.entropy_bottleneck(z.x, mode)
-    h = layer(sp, m.h_s_conv0, Rows(z_hat, z.H)).map(L.leaky_relu)
+    z_hat, z_lik = _per_pixel(lambda t: m.entropy_bottleneck(t, mode), z)
+    h = layer(sp, m.h_s_conv0, z_hat).map(L.leaky_relu)
     h = layer(sp, m.h_s_up0, h).map(L.leaky_relu)
     h = layer(sp, m.h_s_conv1, h).map(L.leaky_relu)
     h = layer(sp, m.h_s_up1, h).map(L.leaky_relu)
-    scales, means = torch.chunk(layer(sp, m.h_s_out, h).x, 2, dim=-1)
-    y_hat, y_lik = m.gaussian(y.x, scales, means=means, mode=mode)
-    out = Rows(y_hat, y.H)
+
+    def gaussian(t, params):
+        scales, means = torch.chunk(params, 2, dim=-1)
+        return m.gaussian(t, scales, means=means, mode=mode)
+
+    out, y_lik = _per_pixel(gaussian, y, layer(sp, m.h_s_out, h))
     for lay in m.g_s_layers:
         out = layer(sp, lay, out)
-    return {"x_hat": out, "likelihoods": {"y": y_lik, "z": z_lik}}
+    return {"x_hat": out, "likelihoods": {"y": y_lik.x, "z": z_lik.x}}
 
 
 def basic_block_forward(sp: Spatial, block, x: Rows) -> Rows:
@@ -522,17 +665,8 @@ def _split(x: Rows, n: int) -> list[Rows]:
     return [Rows(x.x[i * b:(i + 1) * b], x.H) for i in range(n)]
 
 
-@torch.no_grad()
-def spatial_forward(mesh: Mesh, model, x_before: Rows, x_current: Rows, x_after: Rows,
-                    mode: str = "dequantize", stats: SpatialStats | None = None) -> dict:
-    """``LHBDC.forward`` with the frames' rows sharded over ``mesh``
-    (inputs from :func:`shard_spatial`): this rank's rows of ``x_hat`` and
-    ``x_pred`` (:class:`Rows`), and ``bits``, ``bits_flow``,
-    ``bits_residual``, ``sizes`` and ``rate`` summed over the ranks.
-    ``stats`` (a :class:`SpatialStats`) records the fetches and warps."""
-    if mode != "dequantize":
-        raise ValueError(f"the spatial forward runs mode='dequantize', not {mode!r}")
-    sp = Spatial(mesh, stats)
+def lhbdc_forward(sp: Spatial, model, x_before: Rows, x_current: Rows, x_after: Rows) -> dict:
+    """``LHBDC.forward(x_before, x_current, x_after, "dequantize")``."""
     B, H, W = x_current.x.shape[0], x_current.H, x_current.x.shape[2]
     num_pixels = B * H * W
 
@@ -548,7 +682,7 @@ def spatial_forward(mesh: Mesh, model, x_before: Rows, x_current: Rows, x_after:
 
     diff_flow = flow_cb.map(torch.sub, flow_ab).map(
         lambda a, b: torch.cat([a, b], dim=-1), flow_ca.map(torch.sub, flow_ba))
-    flow_out = hyperprior_forward(sp, model.mv_compressor, diff_flow, mode)
+    flow_out = hyperprior_forward(sp, model.mv_compressor, diff_flow)
     hat = flow_out["x_hat"]
     flow_cb_hat = hat.map(lambda t, a: torch.chunk(t, 2, dim=-1)[0] + a, flow_ab)
     flow_ca_hat = hat.map(lambda t, a: torch.chunk(t, 2, dim=-1)[1] + a, flow_ba)
@@ -562,7 +696,7 @@ def spatial_forward(mesh: Mesh, model, x_before: Rows, x_current: Rows, x_after:
     x_pred = mask.map(lambda m, a, b: m * a + (1.0 - m) * b, fw, bw)
 
     residual = x_current.map(torch.sub, x_pred)
-    res_out = hyperprior_forward(sp, model.residual_compressor, residual, mode)
+    res_out = hyperprior_forward(sp, model.residual_compressor, residual)
     x_hat = x_pred.map(torch.add, res_out["x_hat"])
 
     liks = list(flow_out["likelihoods"].values()) + list(res_out["likelihoods"].values())
@@ -579,3 +713,221 @@ def spatial_forward(mesh: Mesh, model, x_before: Rows, x_current: Rows, x_after:
         "bits_residual": bits_res,
         "sizes": sum(per_sample),
     }
+
+
+def ms_feature_forward(sp: Spatial, m, x: Rows) -> tuple:
+    """``MSFeature.forward``: the /2, /4, /8 pyramid."""
+    l1 = layer(sp, m._ConvRBB_0, x)
+    l2 = layer(sp, m._ConvRBB_1, l1)
+    return l1, l2, layer(sp, m._ConvRBB_2, l2)
+
+
+def flownet_forward(sp: Spatial, net, x: Rows) -> Rows:
+    """``FlowNET.forward``: four strided stages down, four up with skips."""
+    skips = [layer(sp, net._ConvRBB_0, x)]
+    for i in (1, 2, 3):
+        skips.append(layer(sp, getattr(net, f"_ConvRBB_{i}"), skips[-1]))
+    x = skips[3]
+    for i, skip in enumerate((skips[2], skips[1], skips[0], None)):
+        x = _chain(sp, net, x, _blocks(2 * i + 2)[2 * i:] + [f"SubpelConv_{i}"])
+        if skip is not None:
+            x = layer(sp, getattr(net, f"Conv_{i}"), cat([x, skip], dim=-1))
+    return x
+
+
+def temporal_enc_forward(sp: Spatial, m, c1: Rows, c2: Rows, c3: Rows) -> Rows:
+    """``TemporalEnc.forward``."""
+    y = layer(sp, m._ConvRBB_0, c1)
+    y = layer(sp, m._ConvRBB_1, cat([y, c2], dim=-1))
+    return layer(sp, m._ConvRBB_2, cat([y, c3], dim=-1))
+
+
+def reconstructor_forward(sp: Spatial, m, x1: Rows, x2: Rows, x3: Rows) -> Rows:
+    """``Reconstructor.forward`` (v4's subpel convs) and
+    ``ReconstructorDeconv``'s (v3's transposed convs)."""
+    def stage(x, i):
+        return _chain(sp, m, x, _blocks(3 * i + 3)[3 * i:] + [f"{m.UP}_{i}"])
+
+    l3 = stage(x3, 0)
+    l2 = stage(layer(sp, m.Conv_0, cat([x2, l3], dim=-1)), 1)
+    return stage(layer(sp, m.Conv_1, cat([x1, l2], dim=-1)), 2)
+
+
+def cond_elic_forward(sp: Spatial, m, inputs, conds, temporal: Rows, s,
+                      x_pixel: Rows | None = None) -> dict:
+    """``CondELIC.forward(inputs, conds, temporal, s, "dequantize",
+    x_pixel=x_pixel)``: the analysis, the bottleneck on z, the hyper
+    parameters, each group's checkerboard and channel context and its
+    Gaussian likelihood, the synthesis. Likelihoods are this rank's rows."""
+    gain, hypergain, invhypergain, invgain = m.interpolate_gain(s)
+    i1, i2, i3 = inputs
+    if m.pixel_stage:
+        y = layer(sp, m.g_a1, cat([layer(sp, m.g_a0, x_pixel), i1], dim=-1))
+    else:
+        y = layer(sp, m.g_a1, i1)
+    y = layer(sp, m.g_a2, cat([y, i2], dim=-1))
+    y = layer(sp, m.g_a3, cat([y, i3], dim=-1)).map(lambda t: t * gain)
+    z = _chain(sp, m, y, ("h_a1", "h_a2", "h_a3"), F.relu).map(lambda t: t * hypergain)
+    likelihoods = {"z": _per_pixel(lambda t: m.entropy_bottleneck(t, "dequantize"), z)[1].x}
+
+    h = _chain(sp, m, z.map(lambda t: ste_round(t) * invhypergain), ("h_s1", "h_s2", "h_s3"),
+               F.relu)
+    hyper = layer(sp, m.prior_fusion_in, cat([h, temporal], dim=-1))
+    for blk in m.prior_fusion_blocks:
+        hyper = layer(sp, blk, hyper)
+    hyper = layer(sp, m.prior_fusion_out, hyper)
+
+    def ctx_quant(v):
+        return ste_round(v) if m.ctx_ste else quantize(v, "dequantize")
+
+    def gaussian(t, params):
+        scales, means = torch.chunk(params, 2, dim=-1)
+        return m.gaussian(t, scales, means=means, mode="dequantize")
+
+    bounds = np.cumsum((0,) + tuple(m.groups))
+    for i in range(len(m.groups)):
+        curr_y = y.map(lambda t, i=i: t[..., bounds[i]:bounds[i + 1]])
+        ctx = sp.keep_non_anchor(layer(sp, m.context_prediction_models[i],
+                                       sp.keep_anchor(curr_y.map(ctx_quant))))
+        parts = [ctx, hyper]
+        if i > 0:
+            prev = y.map(lambda t, i=i: ctx_quant(t[..., :bounds[i]]))
+            parts.insert(1, layer(sp, m.channel_context_models[i - 1], prev))
+        params = layer(sp, m.entropy_parameters[i], cat(parts, dim=-1))
+        likelihoods[f"y_{i}"] = _per_pixel(gaussian, curr_y, params)[1].x
+
+    x = y.map(lambda t: ste_round(t) * invgain)
+    for blk in m.g_s3_blocks:
+        x = layer(sp, blk, x)
+    inp3 = cat([layer(sp, m.g_s3_up, x), conds[2]], dim=-1)
+    inp2 = cat([layer(sp, m.g_s2, inp3), conds[1]], dim=-1)
+    inp1 = cat([layer(sp, m.g_s1, inp2), conds[0]], dim=-1)
+    return {"out1": layer(sp, m.g_o1, inp1), "out2": layer(sp, m.g_o2, inp2),
+            "out3": layer(sp, m.g_o3, inp3), "likelihoods": likelihoods}
+
+
+def offset_diversity_forward(sp: Spatial, m, x1: Rows, head1: Rows, flow1: Rows, x2: Rows,
+                             head2: Rows, flow2: Rows) -> Rows:
+    """``OffsetDiversity.forward``: the per-pixel ``_prep`` of each head on
+    the local rows, then the sharded deform conv."""
+    off1, m1 = _per_pixel(m._prep, head1, flow1)
+    off2, m2 = _per_pixel(m._prep, head2, flow2)
+    return sp.deform(cat([x1, x2], dim=-1), cat([off1, off2], dim=-1), cat([m1, m2], dim=-1),
+                     m.DeformConv_0)
+
+
+def _b_frame_totals(sp: Spatial, x_hat: Rows, xcur: Rows, off: dict, res: dict) -> dict:
+    liks = list(off["likelihoods"].values()) + list(res["likelihoods"].values())
+    bits, per_sample = sp.bits(liks)
+    total = sum(bits)
+    return {"x_hat": x_hat, "bits": total, "size": total, "sizes": sum(per_sample),
+            "rate": total / (xcur.x.shape[0] * xcur.H * xcur.x.shape[2])}
+
+
+def flowguided_b_forward(sp: Spatial, m, x_before: Rows, x_current: Rows, x_after: Rows, s,
+                         scale1=0.5, scale2=-0.5, down_ratio: int = 1) -> dict:
+    """``FlowGuidedB.forward(x_before, x_after, x_current, s, scale1, scale2,
+    down_ratio, "dequantize")``: the references are x_before and x_after."""
+    xref1, xref2, xcur = x_before, x_after, x_current
+    scale1, scale2 = convert_scales(scale1, scale2)
+    # estimate_flow
+    d1 = sp.pool(xref1, down_ratio * 2)
+    d2 = sp.pool(xref2, down_ratio * 2)
+    h, w = d1.H, d1.x.shape[2]
+    d1 = sp.pad_to_multiple(d1, 16, mode="constant")[0]
+    d2 = sp.pad_to_multiple(d2, 16, mode="constant")[0]
+    flow = sp.unpad(flownet_forward(sp, m.flow_estimator, cat([d1, d2], dim=-1)), (h, w))
+    if down_ratio > 1:
+        flow = sp.resize(flow, h * down_ratio, w * down_ratio).map(lambda t: t * down_ratio)
+
+    fref1 = ms_feature_forward(sp, m.feature_extractor, xref1)
+    fref2 = ms_feature_forward(sp, m.feature_extractor, xref2)
+    cond, flows = [], []
+    for i in range(3):  # warped_refs_at_layer
+        f1 = flow.map(lambda t: torch.chunk(t, 2, dim=-1)[0] * scale1)
+        f2 = flow.map(lambda t: torch.chunk(t, 2, dim=-1)[1] * scale2)
+        w1, w2 = sp.warp(fref1[i], f1), sp.warp(fref2[i], f2)
+        cond.append(cat([w1, w2, fref1[i], fref2[i]], dim=-1))
+        flows.append((f1, f2))
+        if i < 2:  # the last level's halved flow is not used
+            flow = sp.resize(flow, flow.H // 2, flow.x.shape[2] // 2).map(lambda t: t * 0.5)
+    offset_temp = temporal_enc_forward(sp, m.offset_temporal_conditioner, *cond)
+
+    fcur = ms_feature_forward(sp, m.feature_extractor, xcur)
+    inputs = [cat([c, f], dim=-1) for c, f in zip(cond, fcur)]
+    off = cond_elic_forward(sp, m.offset_compressor, inputs, cond, offset_temp, s)
+    divs = (m.offset_diversity_l1, m.offset_diversity_l2, m.offset_diversity_l3)
+    x_comp = []
+    for i in range(3):
+        o1, o2 = _split_channels(off[f"out{i + 1}"])
+        x_comp.append(offset_diversity_forward(sp, divs[i], fref1[i], o1, flows[i][0],
+                                               fref2[i], o2, flows[i][1]))
+    res_temp = temporal_enc_forward(sp, m.residue_temporal_conditioner, *x_comp)
+    res_inputs = [cat([f, xc], dim=-1) for f, xc in zip(fcur, x_comp)]
+    res = cond_elic_forward(sp, m.residual_compressor, res_inputs, x_comp, res_temp, s)
+    x_hat = reconstructor_forward(sp, m.reconstructor, *(
+        xc.map(torch.add, res[f"out{i + 1}"]) for i, xc in enumerate(x_comp)))
+    return _b_frame_totals(sp, x_hat, xcur, off, res)
+
+
+def _split_channels(x: Rows) -> tuple[Rows, Rows]:
+    """The two halves of the channels."""
+    return tuple(x.map(lambda t, i=i: torch.chunk(t, 2, dim=-1)[i]) for i in (0, 1))
+
+
+def deform_b_forward(sp: Spatial, m, x_before: Rows, x_current: Rows, x_after: Rows,
+                     s) -> dict:
+    """``DeformB.forward(x_before, x_after, x_current, s, "dequantize")``:
+    each level's two deform convs (``_deform_pair``) through the sharded
+    deform, the residual codec's pixel stage on x_current."""
+    xref1, xref2, xcur = x_before, x_after, x_current
+    fref1 = ms_feature_forward(sp, m.feature_extractor, xref1)
+    fref2 = ms_feature_forward(sp, m.feature_extractor, xref2)
+    cond = [cat([r1, r2], dim=-1) for r1, r2 in zip(fref1, fref2)]
+    offset_temp = temporal_enc_forward(sp, m.offset_temp_encoder, *cond)
+    fcur = ms_feature_forward(sp, m.feature_extractor, xcur)
+    inputs = [cat([c, f], dim=-1) for c, f in zip(cond, fcur)]
+    off = cond_elic_forward(sp, m.offset_compressor, inputs, cond, offset_temp, s)
+    x_comp = []
+    for i in range(3):  # _deform_pair
+        aligned = []
+        for ref, (f, head) in enumerate(zip((fref1[i], fref2[i]),
+                                            _split_channels(off[f"out{i + 1}"])), 1):
+            offsets, masks = _per_pixel(_head_to_deform, head)
+            aligned.append(sp.deform(f, offsets, masks,
+                                     getattr(m, f"deconv_l{i + 1}_{ref}")))
+        x_comp.append(cat(aligned, dim=-1))
+    res_inputs = [cat([f, xc], dim=-1) for f, xc in zip(fcur, x_comp)]
+    res_temp = temporal_enc_forward(sp, m.residual_temp_encoder, *x_comp)
+    res = cond_elic_forward(sp, m.residual_compressor, res_inputs, x_comp, res_temp, s,
+                            x_pixel=xcur)
+    x_hat = reconstructor_forward(sp, m.reconstructor, *(
+        xc.map(torch.add, res[f"out{i + 1}"]) for i, xc in enumerate(x_comp)))
+    return _b_frame_totals(sp, x_hat, xcur, off, res)
+
+
+#: Each family's sharded forward, by its model's class.
+FORWARDS = ((LHBDC, lhbdc_forward), (FlowGuidedB, flowguided_b_forward),
+            (DeformB, deform_b_forward))
+
+
+@torch.no_grad()
+def spatial_forward(mesh: Mesh, model, x_before: Rows, x_current: Rows, x_after: Rows,
+                    mode: str = "dequantize", stats: SpatialStats | None = None,
+                    **family_args) -> dict:
+    """The model's ``dequantize`` forward of one B-frame with the frames'
+    rows sharded over ``mesh`` (inputs from :func:`shard_spatial`), by its
+    class: LHBDC, FlowGuidedB (``family_args``: ``s`` and, as its forward's
+    defaults, ``scale1=0.5``, ``scale2=-0.5``, ``down_ratio=1``) or DeformB
+    (``s``). Returns this rank's rows of ``x_hat`` (and LHBDC's ``x_pred``)
+    as :class:`Rows`, and the bits (``bits``; LHBDC's ``bits_flow`` and
+    ``bits_residual``, v3/v4's ``size``), ``sizes`` and ``rate`` summed over
+    the ranks. ``stats`` (a :class:`SpatialStats`) records the fetches,
+    warps and deform convs."""
+    if mode != "dequantize":
+        raise ValueError(f"the spatial forward runs mode='dequantize', not {mode!r}")
+    for cls, forward in FORWARDS:
+        if isinstance(model, cls):
+            return forward(Spatial(mesh, stats), model, x_before, x_current, x_after,
+                           **family_args)
+    raise TypeError(f"no sharded forward for {type(model).__name__}")
