@@ -228,6 +228,10 @@ WARP_ROW_SHAPES = [
     ("lhbdc", (4, 1088, 1920, 3), 272, 272),
     ("lhbdc", (1, 1088, 1920, 3), 816, 272),
     ("lhbdc", (4, 34, 60, 3), 27, 7),
+    # rank 1's rows of a Flex-Rate warp (the zero ring), rank 3's of DMC's
+    # 48-channel feature warp
+    ("flexrate", (1, 1088, 1920, 3), 272, 272),
+    ("exact", (1, 1088, 1920, 48), 816, 272),
 ]
 
 # The coded window: bench.py's frame size and GOP, two GOPs.
@@ -1160,7 +1164,7 @@ def main_path_dmc(torch) -> dict:
 
 #: The kernels each family's path must launch.
 FAMILY_KERNELS = {"lhbdc": ["warp"], "flowguided_b": ["warp", "deform"],
-                  "deform_b": ["deform"], "flexrate": ["warp"], "dmc": ["warp"]}
+                  "deform_b": ["deform"], "flexrate": ["warp"], "dmc": ["warp"], "elic": []}
 
 # The CLI runs of sequence_cli: (path name, family, encode_v arguments).
 # LHBDC takes bench.py's window settings with real ELIC anchors; FlowGuidedB
@@ -2709,16 +2713,20 @@ def nccl_world1(tmp: str) -> dict:
     return row
 
 
-# mesh_spatial_forward: one B-frame of bench.py's frames (numpy seed 0:
-# frames 0, 8 and 16 of its drifting sequence), float32, 'dequantize',
-# H-sharded over 4 gloo ranks that share the card, for each family with a
-# sharded forward: LHBDC(N=128) (main_path's model and seed; it has no
-# zero-initialised head, so its seeded SPyNet already moves pixels),
-# FlowGuidedB and DeformB at full width, heads seeded (main_path_v4's and
-# main_path_v3's models), s=1.0, v4 at down ratio 1. The deep levels' shards
-# are uneven and, at LHBDC's MV /64, one is empty (320 // 64 = 5 rows: 2, 2,
-# 1, 0); v3/v4's /16 latents' 68 rows start at 0, 17, 34, 51, odd on ranks
-# 1 and 3 (the checkerboard's parity).
+# mesh_spatial_forward: bench.py's frames (numpy seed 0: frames 0, 8 and 16
+# of its drifting sequence), float32, 'dequantize', H-sharded over 4 gloo
+# ranks that share the card, for each family with a sharded forward. One
+# B-frame (frame 8 between 0 and 16) of LHBDC(N=128) (main_path's model and
+# seed; it has no zero-initialised head, so its seeded SPyNet already moves
+# pixels), FlowGuidedB and DeformB at full width, heads seeded (main_path_v4's
+# and main_path_v3's models), s=1.0, v4 at down ratio 1, and Flex-Rate
+# (N=128, main_path_flexrate's model) at n=1, l=1.0; DMC's chain of two
+# P-frames (feat 48, N 64, main_path_dmc's model): frame 8 at ratio 1.0 from
+# frame 0 with an empty DPB, then frame 16 at ratio 1.5 (720 rows edge-padded
+# to 768) from frame 8's sharded DPB; ELIC (N=192, M=320) on frame 8. The
+# deep levels' shards are uneven and, at LHBDC's MV /64, one is empty
+# (320 // 64 = 5 rows: 2, 2, 1, 0); the /16 latents' 68 rows start at 0, 17,
+# 34, 51, odd on ranks 1 and 3 (the checkerboard's and DMC's parts' parity).
 SPATIAL_RANKS = 4
 SPATIAL_BITS_BAR = 1e-3     # relative
 SPATIAL_FLIP_BAR = 1e-5     # share of quantized latents that round the other way
@@ -2732,44 +2740,80 @@ SPATIAL_X_HAT_BAR = 2e-4    # absolute, where no latent flipped (tpuvc's bar)
 # four did, in PR 14's runs). Under the cap all take the same plans.
 SPATIAL_MEM_GIB = 10
 SPATIAL_FAMILIES = {"lhbdc": {}, "flowguided_b": {"s": 1.0, "down_ratio": 1},
-                    "deform_b": {"s": 1.0}}
+                    "deform_b": {"s": 1.0}, "flexrate": {"n": 1, "l": 1.0},
+                    "dmc": {"q": 0.0}, "elic": {}}
+SPATIAL_DMC_RATIOS = (1.0, 1.5)  # DMC's chain: frames 8 and 16
 # Each family's quantized latents: {name: (codec, entropy model, rounded)}.
-# ``rounded`` also keeps round(input): CondELIC synthesises from round(y) and
-# builds its hyper prior from round(z), not from the entropy models' outputs
-# (which round around the means and medians), so a latent has flipped where
-# either rounds the other way.
+# ``rounded`` also keeps round(input): CondELIC and ELIC synthesise from
+# round(y) and build their hyper prior from round(z), not from the entropy
+# models' outputs (which round around the means and medians), so a latent
+# has flipped where either rounds the other way. DMC's Laplace latents are
+# round((y - means) * q_step), four parts a latent.
 _COND_ELIC_LATENTS = {f"{short}_{v}": (codec, part, True)
                       for short, codec in (("off", "offset_compressor"),
                                            ("res", "residual_compressor"))
                       for v, part in (("y", "gaussian"), ("z", "entropy_bottleneck"))}
+
+
+def _hyperprior_latents(mv: str, res: str, part: str = "gaussian") -> dict:
+    return {f"{short}_{v}": (codec, p, False) for short, codec in (("mv", mv), ("res", res))
+            for v, p in (("y", part), ("z", "entropy_bottleneck"))}
+
+
 SPATIAL_LATENTS = {
-    "lhbdc": {"mv_y": ("mv_compressor", "gaussian", False),
-              "mv_z": ("mv_compressor", "entropy_bottleneck", False),
-              "res_y": ("residual_compressor", "gaussian", False),
-              "res_z": ("residual_compressor", "entropy_bottleneck", False)},
+    "lhbdc": _hyperprior_latents("mv_compressor", "residual_compressor"),
     "flowguided_b": _COND_ELIC_LATENTS,
     "deform_b": _COND_ELIC_LATENTS,
+    "flexrate": _hyperprior_latents("flow_compressor", "residual_compressor"),
+    "dmc": _hyperprior_latents("mv_coder", "y_coder", "laplace"),
+    "elic": {"y": (None, "gaussian", True), "z": (None, "entropy_bottleneck", True)},
 }
 
 
 def spatial_inputs(torch, device, frame=FRAME, family: str = "lhbdc"):
-    """(the family's seeded model, (x_before, x_current, x_after)) on
-    ``device``: bench.py's frames 0, 8 and 16 at ``frame``. LHBDC(N=128)
-    seeded as main_path's; FlowGuidedB and DeformB at full width as
-    main_path_v4's and main_path_v3's (``v4_model``, ``v3_model``)."""
+    """(the family's seeded model, frames 0, 8 and 16) on ``device``:
+    bench.py's frames at ``frame``. LHBDC(N=128) seeded as main_path's;
+    FlowGuidedB, DeformB and Flex-Rate at full width as main_path_v4's,
+    main_path_v3's and main_path_flexrate's (``v4_model``, ``v3_model``,
+    ``flexrate_model``); DMC as main_path_dmc's (``dmc_model``); ELIC at
+    N=192, M=320, seeded."""
     import numpy as np
 
+    from tpuvc_torch.models.elic import ELIC
     from tpuvc_torch.models.lhbdc import LHBDC
 
     rng = np.random.default_rng(0)
     base = rng.random((*frame, 3), dtype=np.float32)
     drift = (0.01 * rng.standard_normal((*frame, 3))).astype(np.float32)
     xs = [torch.from_numpy(np.clip(base + i * drift, 0, 1))[None].to(device) for i in (0, 8, 16)]
-    if family == "lhbdc":
-        model = LHBDC(N=128, generator=torch.Generator().manual_seed(0))
-    else:
-        model = (v4_model if family == "flowguided_b" else v3_model)(torch)
-    return model.to(device).eval(), xs
+    build = {"lhbdc": lambda: LHBDC(N=128, generator=torch.Generator().manual_seed(0)),
+             "flowguided_b": lambda: v4_model(torch), "deform_b": lambda: v3_model(torch),
+             "flexrate": lambda: flexrate_model(torch), "dmc": lambda: dmc_model(torch),
+             "elic": lambda: ELIC(generator=torch.Generator().manual_seed(0))}
+    return build[family]().to(device).eval(), xs
+
+
+def spatial_steps(family: str) -> list:
+    """[(run name, spatial_forward's family_args)]: the forwards
+    mesh_spatial_forward makes of ``family``, one, or DMC's chain of
+    P-frames (``SPATIAL_DMC_RATIOS``), each from the DPB before it."""
+    kw = SPATIAL_FAMILIES[family]
+    if family == "dmc":
+        return [(f"dmc_frame{8 * (i + 1)}", {**kw, "ratio": r})
+                for i, r in enumerate(SPATIAL_DMC_RATIOS)]
+    return [(family, kw)]
+
+
+def spatial_step_inputs(family: str, step: int, frames, dpb=None) -> tuple:
+    """spatial_forward's positional inputs for ``family``'s step ``step``
+    of ``frames`` (0, 8, 16; whole tensors or their Rows): the B-frame
+    triple, ELIC's frame 8, or DMC's frame 8 (16) and the DPB (frame 0's
+    empty one for the first)."""
+    if family == "elic":
+        return (frames[1],)
+    if family == "dmc":
+        return (frames[step + 1], {"ref_frame": frames[0]} if dpb is None else dpb)
+    return tuple(frames)
 
 
 def cap_device_memory(torch, gib) -> None:
@@ -2779,25 +2823,36 @@ def cap_device_memory(torch, gib) -> None:
     torch.cuda.set_per_process_memory_fraction(1.0 if gib is None else gib * 2**30 / total)
 
 
-def unsharded_forward(model, family: str, frames) -> dict:
-    """The family's own ``dequantize`` forward of (x_before, x_current,
-    x_after) with SPATIAL_FAMILIES' arguments: {"x_hat", "bits"}."""
-    xb, xc, xa = frames
-    kw = SPATIAL_FAMILIES[family]
+def unsharded_forward(model, family: str, inputs, **family_args) -> dict:
+    """The family's own ``dequantize`` forward of spatial_forward's
+    positional ``inputs`` (``spatial_step_inputs``) with SPATIAL_FAMILIES'
+    arguments and ``family_args``: {"x_hat", "bits", "dpb" (DMC's, else
+    None)}."""
+    kw = {**SPATIAL_FAMILIES[family], **family_args}
     if family == "lhbdc":
-        out = model(xb, xc, xa, "dequantize")
-        return {"x_hat": out["x_hat"], "bits": out["bits"]}
-    if family == "flowguided_b":
-        out = model(xb, xa, xc, kw["s"], 0.5, -0.5, kw["down_ratio"], "dequantize")
+        out = model(*inputs, "dequantize")
+        return {"x_hat": out["x_hat"], "bits": out["bits"], "dpb": None}
+    if family == "elic":
+        out = model(*inputs, "dequantize")
+        return {"x_hat": out["x_hat"], "bits": model.bits(out["likelihoods"]), "dpb": None}
+    if family == "dmc":
+        out = model(*inputs, kw["ratio"], "dequantize", q=kw["q"])
+        return {"x_hat": out["x_hat"], "bits": out["bits"], "dpb": out["dpb"]}
+    if family == "flexrate":
+        out = model(*inputs, kw["n"], kw["l"], "dequantize")
     else:
-        out = model(xb, xa, xc, kw["s"], "dequantize")
-    return {"x_hat": out["x_hat"], "bits": out["size"]}
+        xb, xc, xa = inputs
+        if family == "flowguided_b":
+            out = model(xb, xa, xc, kw["s"], 0.5, -0.5, kw["down_ratio"], "dequantize")
+        else:
+            out = model(xb, xa, xc, kw["s"], "dequantize")
+    return {"x_hat": out["x_hat"], "bits": out["size"].sum(), "dpb": None}
 
 
 class _KeepLatent:
-    """Stands in for a codec's GaussianConditional (a plain object, which
-    takes no forward hook): calls it and hands (its first output, its
-    input) to ``keep``."""
+    """Stands in for a codec's Gaussian or Laplace conditional (a plain
+    object, which takes no forward hook): calls it and hands (its first
+    output, its input) to ``keep``."""
 
     def __init__(self, inner, keep):
         self._inner, self._keep = inner, keep
@@ -2815,9 +2870,10 @@ def latent_hooks(model, family: str) -> dict:
     """Keep the quantized latents (the entropy models' first output, with
     round(input) stacked before it where SPATIAL_LATENTS says so) of the
     model's forwards under SPATIAL_LATENTS' names: a forward hook on each
-    bottleneck, a _KeepLatent around each Gaussian conditional. A model
-    that calls one several times a forward (CondELIC's channel groups)
-    keeps a list of its outputs; clear the dict before the forward to keep."""
+    bottleneck, a _KeepLatent around each Gaussian or Laplace conditional
+    (of the model itself where the codec is None). A model that calls one
+    several times a forward (channel groups, DMC's parts) keeps a list of
+    its outputs; clear the dict before the forward to keep."""
     import torch
 
     got = {}
@@ -2826,9 +2882,9 @@ def latent_hooks(model, family: str) -> dict:
             got.setdefault(name, []).append(
                 torch.stack([q.detach(), torch.round(x.detach())]) if rounded else q.detach()[None])
 
-        owner = getattr(model, codec)
-        if part == "gaussian":
-            owner.gaussian = _KeepLatent(owner.gaussian, keep)
+        owner = model if codec is None else getattr(model, codec)
+        if part in ("gaussian", "laplace"):
+            setattr(owner, part, _KeepLatent(getattr(owner, part), keep))
         else:
             getattr(owner, part).register_forward_hook(
                 lambda mod, args, out, keep=keep: keep(out[0], args[0]))
@@ -2837,7 +2893,7 @@ def latent_hooks(model, family: str) -> dict:
 
 def kept_latents(got: dict) -> dict:
     """latent_hooks' lists joined: {name: (views, B, H, W, C)} on the CPU,
-    the channel groups of one forward side by side."""
+    the calls of one forward side by side."""
     import torch
 
     return {k: torch.cat(v, dim=-1).cpu() for k, v in got.items()}
@@ -2845,11 +2901,12 @@ def kept_latents(got: dict) -> dict:
 
 # Run by torchrun in each rank: joins a gloo group on the device named by the
 # second argument; for each family of SPATIAL_FAMILIES builds spatial_inputs
-# (frame H x W from the third), runs spatial_forward once to warm up and once
-# timed with the launch counts set to 0 just before and read just after, and
-# saves this rank's rows of x_hat, its rows of the quantized latents, the
-# totals, its SpatialStats, the forward's ms and peak memory and the launched
-# kernel shapes to OUT/spatial_FAMILY_RANK.pt.
+# (frame H x W from the third), runs its spatial_steps once to warm up and
+# once timed, each step with the launch counts set to 0 just before and read
+# just after, and saves this rank's rows of x_hat, its rows of the quantized
+# latents, the totals, its SpatialStats, the forward's ms and peak memory and
+# the launched kernel shapes to OUT/spatial_RUN_RANK.pt; rank 0's file of a
+# DMC step also holds its DPB, gathered.
 MESH_SPATIAL_IN_RANKS = """
 import dataclasses, os, sys, time
 import torch
@@ -2865,34 +2922,48 @@ if cuda:
     set_deterministic()
     chip_smoke.cap_device_memory(torch, chip_smoke.SPATIAL_MEM_GIB)
 logged = chip_smoke.log_launches() if cuda else {"warp": set(), "deform": set()}
-for family, kw in chip_smoke.SPATIAL_FAMILIES.items():
+for family in chip_smoke.SPATIAL_FAMILIES:
     model, frames = chip_smoke.spatial_inputs(torch, mesh.device, frame, family)
     latents = chip_smoke.latent_hooks(model, family)
     rows = S.shard_spatial(mesh, frames)
-    S.spatial_forward(mesh, model, *rows, **kw)
-    if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    dist.barrier()
-    for shapes in logged.values():
-        shapes.clear()
-    latents.clear()
-    stats = S.SpatialStats()
-    chip_smoke.reset_launches()
-    t0 = time.perf_counter()
-    out = S.spatial_forward(mesh, model, *rows, stats=stats, **kw)
-    if cuda:
-        torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0)
-    launches = chip_smoke.read_launches()
-    torch.save({"rank": mesh.rank, "ms": ms, "launches": launches,
-                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
-                "x_hat": out["x_hat"].x.cpu(), "latents": chip_smoke.kept_latents(latents),
-                "bits": float(out["bits"]), "sizes": out["sizes"].cpu(),
-                "stats": dataclasses.asdict(stats),
-                "shapes": {k: sorted(v) for k, v in logged.items()}},
-               os.path.join(out_dir, f"spatial_{family}_{mesh.rank}.pt"))
-    del model, frames, rows, out, latents
+    steps = chip_smoke.spatial_steps(family)
+    for timed in (False, True):
+        dpb = None
+        for step, (run, kw) in enumerate(steps):
+            inputs = chip_smoke.spatial_step_inputs(family, step, rows, dpb)
+            stats = S.SpatialStats() if timed else None
+            if timed:
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                dist.barrier()
+                for shapes in logged.values():
+                    shapes.clear()
+                latents.clear()
+                chip_smoke.reset_launches()
+            t0 = time.perf_counter()
+            out = S.spatial_forward(mesh, model, *inputs, stats=stats, **kw)
+            if cuda:
+                torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches = chip_smoke.read_launches()
+            dpb = out.get("dpb")
+            if not timed:
+                continue
+            kept = None
+            if step + 1 < len(steps):  # the next step's unsharded run starts from it
+                kept = {k: S.gather_rows(mesh, v).cpu() for k, v in dpb.items()
+                        if k != "ref_down_ratio"}
+            torch.save({"rank": mesh.rank, "ms": ms, "launches": launches,
+                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+                        "x_hat": out["x_hat"].x.cpu(), "latents": chip_smoke.kept_latents(latents),
+                        "bits": float(out["bits"]), "sizes": out["sizes"].cpu(),
+                        "stats": dataclasses.asdict(stats),
+                        "shapes": {k: sorted(v) for k, v in logged.items()},
+                        "dpb": kept if mesh.rank == 0 else None},
+                       os.path.join(out_dir, f"spatial_{run}_{mesh.rank}.pt"))
+            del out, kept
+    del model, frames, rows, latents, dpb
     if cuda:
         chip_smoke.release_cache(torch)
     dist.barrier()
@@ -2900,21 +2971,51 @@ dist.destroy_process_group()
 """
 
 
+def _unsharded_run(torch, family: str, run: str, kw: dict, model, inputs, frame,
+                   cuda: bool) -> tuple:
+    """One step of ``family`` unsharded in this process, after a warm
+    forward: (its mesh_spatial_forward row, x_hat, the kept latents, the
+    bits) on the CPU."""
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    latents = latent_hooks(model, family)
+    with torch.no_grad():
+        unsharded_forward(model, family, inputs, **kw)
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        latents.clear()
+        reset_launches()
+        t0 = time.perf_counter()
+        ref = unsharded_forward(model, family, inputs, **kw)
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+    one = {"phase": "mesh_spatial_forward", "family": family, "run": run,
+           "ranks": "one process, unsharded", "frame": list(frame), "family_args": kw,
+           "mode": "dequantize", "compute_dtype": "float32", "forward_ms": ms,
+           "launches": read_launches(),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
+    emit(one)
+    return one, ref["x_hat"].cpu(), kept_latents(latents), float(ref["bits"])
+
+
 def mesh_spatial_forward(torch, logged: dict, tmp: str, device: str = "cuda",
                          frame=FRAME) -> dict:
-    """Each SPATIAL_FAMILIES forward with the frame's rows split over
-    SPATIAL_RANKS gloo ranks on the card (tpuvc_torch.parallel.spatial,
-    MESH_SPATIAL_IN_RANKS, one launch of the ranks for all families)
-    against the same forward unsharded in this process, each after a warm
-    forward, every process capped at SPATIAL_MEM_GIB of device memory. Per
-    family, one row for the unsharded run and one per rank (forward ms,
-    peak GiB, warp and deform launches and their y0, bytes fetched, the
-    share of warp samples and of deform taps in another rank's rows), then the comparison: x_hat's largest difference and share above
-    1e-4, the quantized latents that differ (by more than 0.5: a value that
-    rounds the other way), the bits' relative difference. cuDNN picks its
-    algorithm by shape, so a latent near a rounding edge may flip: the
-    phase fails on bits off by more than SPATIAL_BITS_BAR, more than
-    SPATIAL_FLIP_BAR of the latents flipped, x_hat off by more than
+    """Each SPATIAL_FAMILIES forward (each of its ``spatial_steps``) with the
+    frame's rows split over SPATIAL_RANKS gloo ranks on the card
+    (tpuvc_torch.parallel.spatial, MESH_SPATIAL_IN_RANKS, one launch of the
+    ranks for all families) against the same forward unsharded in this
+    process, each after a warm forward, every process capped at
+    SPATIAL_MEM_GIB of device memory. DMC's frame 16 runs unsharded after
+    the ranks, from their gathered DPB of frame 8, so that each frame is
+    judged on its own. Per run, one row for the unsharded run and one per
+    rank (forward ms, peak GiB, warp and deform launches and their y0,
+    bytes fetched, the share of warp samples and of deform taps in another
+    rank's rows), then the comparison: x_hat's largest difference and share
+    above 1e-4, the quantized latents that differ (by more than 0.5: a
+    value that rounds the other way), the bits' relative difference. cuDNN
+    picks its algorithm by shape, so a latent near a rounding edge may
+    flip: the phase fails on bits off by more than SPATIAL_BITS_BAR, more
+    than SPATIAL_FLIP_BAR of the latents flipped, x_hat off by more than
     SPATIAL_X_HAT_BAR where none flipped, a rank without a launch of each
     kernel of the family (FAMILY_KERNELS) or with launch counts other than
     its recorded warps and deform convs, ranks 1.. with a launch at y0 0,
@@ -2922,32 +3023,15 @@ def mesh_spatial_forward(torch, logged: dict, tmp: str, device: str = "cuda",
     from tpuvc_torch.parallel.spatial import rows_of
 
     cuda = device == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
     if cuda:
         cap_device_memory(torch, SPATIAL_MEM_GIB)
     unsharded = {}
     for family in SPATIAL_FAMILIES:
         model, frames = spatial_inputs(torch, device, frame, family)
-        latents = latent_hooks(model, family)
-        with torch.no_grad():
-            unsharded_forward(model, family, frames)
-            sync()
-            if cuda:
-                torch.cuda.reset_peak_memory_stats()
-            latents.clear()
-            reset_launches()
-            t0 = time.perf_counter()
-            ref = unsharded_forward(model, family, frames)
-            sync()
-            ms = 1e3 * (time.perf_counter() - t0)
-        one = {"phase": "mesh_spatial_forward", "family": family, "run": "one process, unsharded",
-               "frame": list(frame), "family_args": SPATIAL_FAMILIES[family],
-               "mode": "dequantize", "compute_dtype": "float32", "forward_ms": ms,
-               "launches": read_launches(),
-               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
-        emit(one)
-        unsharded[family] = (one, ref["x_hat"].cpu(), kept_latents(latents), float(ref["bits"]))
-        del model, frames, ref, latents
+        run, kw = spatial_steps(family)[0]  # later DMC frames: after the ranks
+        unsharded[run] = (family, *_unsharded_run(
+            torch, family, run, kw, model, spatial_step_inputs(family, 0, frames), frame, cuda))
+        del model, frames
         if cuda:
             release_cache(torch)
     if cuda:
@@ -2955,10 +3039,31 @@ def mesh_spatial_forward(torch, logged: dict, tmp: str, device: str = "cuda",
     out_dir = os.path.join(tmp, "spatial_ranks")
     os.makedirs(out_dir)
     launch_ranks(SPATIAL_RANKS, MESH_SPATIAL_IN_RANKS, [out_dir, device, "x".join(map(str, frame))],
-                 600)
+                 720)
+    if cuda:
+        cap_device_memory(torch, SPATIAL_MEM_GIB)
+    for family in SPATIAL_FAMILIES:
+        steps = spatial_steps(family)
+        if len(steps) == 1:
+            continue
+        model, frames = spatial_inputs(torch, device, frame, family)
+        for step, (run, kw) in enumerate(steps[1:], 1):
+            prev = torch.load(os.path.join(out_dir, f"spatial_{steps[step - 1][0]}_0.pt"),
+                              weights_only=False)["dpb"]
+            dpb = {**{k: v.to(device) for k, v in prev.items()},
+                   "ref_down_ratio": steps[step - 1][1]["ratio"]}
+            unsharded[run] = (family, *_unsharded_run(
+                torch, family, run, kw, model, spatial_step_inputs(family, step, frames, dpb),
+                frame, cuda))
+            del dpb
+        del model, frames
+        if cuda:
+            release_cache(torch)
+    if cuda:
+        cap_device_memory(torch, None)
     result, fails = {}, []
-    for family, (one, x_ref, lat_ref, bits_ref) in unsharded.items():
-        ranks = [torch.load(os.path.join(out_dir, f"spatial_{family}_{r}.pt"), weights_only=False)
+    for run, (family, one, x_ref, lat_ref, bits_ref) in unsharded.items():
+        ranks = [torch.load(os.path.join(out_dir, f"spatial_{run}_{r}.pt"), weights_only=False)
                  for r in range(SPATIAL_RANKS)]
         rows = []
         for r in ranks:
@@ -2966,8 +3071,8 @@ def mesh_spatial_forward(torch, logged: dict, tmp: str, device: str = "cuda",
             for kernel in logged:
                 logged[kernel].update(tuple(v) for v in r["shapes"][kernel])
             rows.append({
-                "phase": "mesh_spatial_forward", "family": family,
-                "run": f"rank {r['rank']} of {SPATIAL_RANKS}",
+                "phase": "mesh_spatial_forward", "family": family, "run": run,
+                "ranks": f"rank {r['rank']} of {SPATIAL_RANKS}",
                 "rows": list(rows_of(frame[0], SPATIAL_RANKS, r["rank"])),
                 "forward_ms": r["ms"], "peak_mem_gib": r["peak_mem_gib"],
                 "launches": r["launches"], "warps_y0_rows_H_B_C": st["warps"],
@@ -2988,9 +3093,10 @@ def mesh_spatial_forward(torch, logged: dict, tmp: str, device: str = "cuda",
             return sum(r["stats"][hit] for r in ranks) / n if n else None
 
         summary = {
-            "phase": "mesh_spatial_forward", "family": family, "run": "sharded vs unsharded",
-            "frame": list(frame), "ranks": SPATIAL_RANKS,
-            "dist_backend": "gloo" if cuda else "gloo (CPU)", "ranks_share_one_card": cuda,
+            "phase": "mesh_spatial_forward", "family": family, "run": run,
+            "ranks": f"{SPATIAL_RANKS} sharded vs unsharded",
+            "frame": list(frame), "dist_backend": "gloo" if cuda else "gloo (CPU)",
+            "ranks_share_one_card": cuda,
             "x_hat_shape": list(x_hat.shape), "x_hat_max_abs_diff": float(d.max()),
             "x_hat_share_above_1e-4": float((d > 1e-4).float().mean()),
             "latents_flipped": flipped, "latents": n_latents,
@@ -3018,17 +3124,19 @@ def mesh_spatial_forward(torch, logged: dict, tmp: str, device: str = "cuda",
             bad.append("ranks' totals")
         for kernel, what, hit in (("warp", "warps", "warp_samples_in_other_ranks_rows"),
                                   ("deform", "deforms", "deform_taps_in_other_ranks_rows")):
+            for r, row in zip(ranks, rows):
+                if cuda and r["launches"][kernel] != len(row[f"{what}_y0_rows_H_B_C"]):
+                    bad.append(f"rank {r['rank']}'s {kernel} launch count")
             if kernel not in FAMILY_KERNELS[family]:
                 continue
             if not summary[hit]:
                 bad.append(f"no {kernel} sample in another rank's rows")
             for r, row in zip(ranks, rows):
                 done = row[f"{what}_y0_rows_H_B_C"]
-                if (not done or (r["rank"] > 0 and 0 in {w[0] for w in done})
-                        or (cuda and r["launches"][kernel] != len(done))):
+                if not done or (r["rank"] > 0 and 0 in {w[0] for w in done}):
                     bad.append(f"rank {r['rank']}'s {kernel} launches")
-        fails += [f"{family}: {b}" for b in bad]
-        result[family] = {"one_process": one, "ranks": rows, "summary": summary}
+        fails += [f"{run}: {b}" for b in bad]
+        result[run] = {"one_process": one, "ranks": rows, "summary": summary}
     if fails:
         raise AssertionError(f"mesh_spatial_forward: {fails}")
     return result
@@ -3199,7 +3307,7 @@ def main() -> int:
         mesh_train = mesh_train_cli(torch, logged, mesh_tmp.name)
     with phase("nccl_world1", 180):
         nccl_world1(mesh_tmp.name)
-    with phase("mesh_spatial_forward", 720):
+    with phase("mesh_spatial_forward", 900):
         spatial = mesh_spatial_forward(torch, logged, mesh_tmp.name)
     mesh_tmp.cleanup()
     with phase("adaptive_ratios", 180):
@@ -3279,9 +3387,12 @@ def main() -> int:
         if kernel == "warp":
             kernels[-1]["dmc_head"] = {k: dmc_head[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        kernels[-1]["spatial_head"] = {k: spatial_heads[kernel].get(k) for k in (
-            "shape", "x_shape", "y0", "rows", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}
+        row_keys = ("compat", "shape", "x_shape", "y0", "rows", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")
+        kernels[-1]["spatial_head"] = {k: spatial_heads[kernel].get(k) for k in row_keys}
+        if kernel == "warp":  # every row-offset row: each mode and width the ranks warp at
+            kernels[-1]["row_offset_rows"] = [{k: r.get(k) for k in row_keys} for r in warp_rows
+                                              if r["rows"] != r["shape"][1]]
         # the largest training shape: forward, and the backward training runs
         train_head = max((r for r in train_krows if r["kernel"] == kernel),
                          key=lambda r: r["fwd_ms"])

@@ -1,9 +1,10 @@
 """Why tpuvc_torch.parallel.spatial computes transposed convs whole, and why
 chip_smoke.py caps the device memory of mesh_spatial_forward's processes.
 
-For every Conv, Deconv and CheckerboardConv call of the unsharded
-FlowGuidedB and DeformB forwards (full width, seeded, chip_smoke's
-spatial_inputs) of one 1088x1920 B-frame on a CUDA card:
+For every Conv, Deconv and CheckerboardConv call of the unsharded forwards
+of ``--families`` (FlowGuidedB and DeformB by default; full width, seeded,
+chip_smoke's spatial_inputs and spatial_steps: one 1088x1920 B-frame, DMC's
+chain of two P-frames, ELIC's I-frame) on a CUDA card:
 
   windows    each rank's output rows computed from its window (a conv as
              ``Spatial.conv`` cuts it; a transposed conv from the input rows
@@ -12,7 +13,7 @@ spatial_inputs) of one 1088x1920 B-frame on a CUDA card:
   workspace  the device memory the call takes above what was allocated
              before it and its output (cuDNN's workspace), largest first.
 
-    python3 scripts/spatial_conv_audit.py [--cap GIB] [--ranks 4]
+    python3 scripts/spatial_conv_audit.py [--cap GIB] [--ranks 4] [--families dmc,elic]
 
 ``--cap`` caps this process's device memory as ``mesh_spatial_forward``
 does (``chip_smoke.SPATIAL_MEM_GIB``): cuDNN then passes over the plans
@@ -108,7 +109,10 @@ def audit(family: str, n: int, device: str, frame) -> None:
             mod.register_forward_pre_hook(before)
             mod.register_forward_hook(after(name))
     with torch.no_grad():
-        chip_smoke.unsharded_forward(model, family, frames)
+        dpb = None
+        for step, (_, kw) in enumerate(chip_smoke.spatial_steps(family)):
+            inputs = chip_smoke.spatial_step_inputs(family, step, frames, dpb)
+            dpb = chip_smoke.unsharded_forward(model, family, inputs, **kw)["dpb"]
     for row in differ:
         print(json.dumps(row), flush=True)
     spent.sort(reverse=True)
@@ -126,6 +130,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--frame", default="x".join(map(str, chip_smoke.FRAME)), help="HxW")
+    ap.add_argument("--families", default="flowguided_b,deform_b",
+                    help=f"comma-separated, of {','.join(chip_smoke.SPATIAL_FAMILIES)}")
     args = ap.parse_args(argv)
     frame = tuple(int(v) for v in args.frame.split("x"))
     if args.device == "cuda":
@@ -138,7 +144,7 @@ def main(argv=None) -> int:
         if args.cap is not None:
             chip_smoke.cap_device_memory(torch, args.cap)
         print(json.dumps({"card": nvidia_smi(), "cap_gib": args.cap}), flush=True)
-    for family in ("flowguided_b", "deform_b"):
+    for family in args.families.split(","):
         audit(family, args.ranks, args.device, frame)
         if args.device == "cuda":
             torch.cuda.empty_cache()

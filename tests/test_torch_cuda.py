@@ -1001,3 +1001,82 @@ def test_spatial_flowguided_forward_over_2_ranks_on_card(cuda, tmp_path):
         assert len(out["warps"]) == 6 and len(out["deforms"]) == 3
         for w in out["warps"] + out["deforms"]:
             assert w[0] == rows_of(w[2], 2, r)[0]
+
+
+@pytest.mark.parametrize("compat,shape,y0,rows", [
+    ("flexrate", (1, 1088, 1920, 3), 272, 272),
+    ("flexrate", (1, 1088, 1920, 3), 816, 272),
+    ("exact", (1, 1088, 1920, 48), 816, 272),
+    ("exact", (1, 1088, 1920, 48), 0, 272),
+])
+def test_warp_kernel_rows_at_the_spatial_flexrate_and_dmc_shapes(cuda, compat, shape, y0, rows):
+    """The sharded Flex-Rate and DMC forwards' warps at 1088x1920 over 4
+    ranks: a rank's rows of a flexrate warp (the zero ring) and of DMC's
+    48-channel feature warp equal those rows of a whole-frame launch and
+    warp_plain with the same y0, bit for bit."""
+    from tpuvc_torch.ops.warp import warp, warp_kernel, warp_plain
+
+    img, flow = (t.to(cuda) for t in _inputs(shape, scale=6.0, seed=y0 + shape[-1]))
+    full = warp(img, flow, compat)
+    part = flow[:, y0:y0 + rows].contiguous()
+    before = warp_kernel.launches
+    out = warp(img, part, compat, y0)
+    assert warp_kernel.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, full[:, y0:y0 + rows])
+    assert torch.equal(out, warp_plain(img, part, compat, y0))
+
+
+@pytest.mark.parametrize("y0,h", [(0, 17), (17, 17), (51, 17), (135, 1)])
+def test_dmc_part_masks_of_rows_on_card(cuda, y0, h):
+    """DMC's part masks of a rank's rows (its first row's parity; 68 rows
+    over 4 ranks start at 0, 17, 34, 51) are those rows of the frame's, on
+    the card."""
+    from tpuvc_torch.models.dmc import part_mask
+
+    for k in range(4):
+        frame = part_mask(136, 240, 64, k, device=cuda)
+        assert torch.equal(part_mask(h, 240, 64, k, device=cuda, y0=y0), frame[y0:y0 + h])
+
+
+def test_spatial_rest_forwards_over_4_ranks_on_card(cuda, tmp_path):
+    """Four gloo ranks share the card (tests/torch_mesh_worker.py's
+    spatial_rest_card case): Flex-Rate, DMC's two chained P-frames and ELIC
+    at the CPU tests' widths and frames, seeded, H-sharded, against the
+    unsharded forwards on the card (DMC's second frame from the ranks'
+    gathered DPB) at tpuvc's bars for its sharded forward; each rank
+    launches the warp kernel at its own first row of each warp, Flex-Rate
+    four times, ELIC never."""
+    from torch_mesh_worker import REST_DMC_CHAIN, REST_RATE, rest_frames, rest_model, run_ranks
+    from tpuvc_torch.parallel.spatial import rows_of
+
+    ranks = run_ranks("spatial_rest_card", tmp_path, world=4)
+    with torch.no_grad():
+        for family in ("flexrate", "dmc", "elic"):
+            model = rest_model(family, seed=0).to(cuda)
+            xs = [torch.from_numpy(x).to(cuda) for x in rest_frames(family)]
+            if family == "flexrate":
+                refs = [model(*xs, *REST_RATE, "dequantize")]
+            elif family == "elic":
+                out = model(*xs, "dequantize")
+                refs = [{"x_hat": out["x_hat"], "bits": model.bits(out["likelihoods"])}]
+            else:
+                refs = []
+                for i, (ratio, q) in enumerate(REST_DMC_CHAIN):
+                    dpb = ({"ref_frame": xs[0]} if i == 0 else
+                           {k: v if k == "ref_down_ratio" else v.to(cuda)
+                            for k, v in ranks[0][(family, i - 1)]["dpb"].items()})
+                    refs.append(model(xs[i + 1], dpb, ratio, "dequantize", q=q))
+            for i, ref in enumerate(refs):
+                bits = ref["bits"] if "bits" in ref else ref["size"].sum()
+                for r, out in enumerate(ranks):
+                    got = out[(family, i)]
+                    torch.testing.assert_close(got["x_hat"], ref["x_hat"].cpu(), rtol=0,
+                                               atol=2e-4)
+                    torch.testing.assert_close(got["bits"], bits.cpu(), rtol=2e-4, atol=0)
+                    warps = got["stats"].warps
+                    assert got["launches"] == len(warps)
+                    assert len(warps) == {"flexrate": 4, "elic": 0}.get(family, len(warps))
+                    assert family == "elic" or warps
+                    for w in warps:
+                        assert w[0] == rows_of(w[2], 4, r)[0]

@@ -7,9 +7,9 @@ unsharded ops and forwards.
   refuses an H the mesh does not divide;
 - each sharded op equals its unsharded counterpart on the gathered rows:
   exactly where it moves, pools or selects values (pads, crops, shuffles,
-  pools, fetches, the warp), within 2e-6 where it sums products (convs and
-  bilinear resizes: the same op on a window of other height may block its
-  float32 sums otherwise; the deform's plain version may block its per-tap
+  pools, fetches, the warp), within 2e-6 where it sums products (convs,
+  bilinear and antialiased resizes: the same op on a window of other
+  height may block its float32 sums otherwise; the deform's plain version may block its per-tap
   contraction by row count). The cases hold 1-row shards under a stride-2
   conv (the case XLA's partitioner miscomputes: held to the unsharded conv,
   not to tpuvc's sharded result), an empty shard (5 rows over 4 ranks), a
@@ -47,7 +47,7 @@ torch.set_num_threads(1)
 WORLDS = (2, 4)
 OPS = sorted(spatial_op_cases())
 # Ops that sum products; the others move values and must be exact.
-SUMMING = ("conv", "subpel", "up2", "upsample", "deform")
+SUMMING = ("conv", "subpel", "up2", "upsample", "resize", "deform")
 BAR = 2e-4  # tpuvc's TestSpatialSharding bars: x_hat absolute, sizes relative
 
 

@@ -319,6 +319,12 @@ def spatial_op_cases():
                                 resample.upsample2x_flow)
     cases["upsample_flow_x4"] = ((1, 17, 6, 2), lambda sp, x: sp.upsample_flow(x, 4),
                                  lambda x: resample.upsample_flow(x, 4))
+    # DMC's antialiased downsample by 1.5: 17 rows to 11 (3, 3, 3, 2 over 4
+    # ranks), each output row reading about 3 input rows; and by 4
+    for (H, W), (h, w) in (((17, 9), (11, 6)), ((16, 8), (4, 8))):
+        cases[f"resize_antialias_{H}_to_{h}"] = (
+            (1, H, W, 3), lambda sp, x, h=h, w=w: sp.resize_antialias(x, h, w),
+            lambda x, h=h, w=w: resample.resize_antialias(x, h, w))
     cases["pad_reflect_wraps"] = ((1, 17, 5, 2), lambda sp, x: sp.pad_to_multiple(x, 64)[0],
                                   lambda x: pad.pad_to_multiple(x, 64)[0])
     cases["pad_reflect_past_neighbour"] = (
@@ -547,10 +553,119 @@ def case_spatial_v4_card(mesh, inputs):
             "deforms": stats.deforms}
 
 
+#: The Flex-Rate, DMC and ELIC spatial forwards' frames (H, W) and model
+#: widths. 192 rows: Flex-Rate's and ELIC's /16 rows start at 0, 3, 6, 9
+#: over 4 ranks, their /64 rows are 1, 1, 1, 0; 160 rows: DMC's /8 latents'
+#: rows start at 0, 5, 10, 15 and its /32 hyper latents' rows are 2, 2, 1, 0.
+REST_FRAMES = {"flexrate": (192, 128), "dmc": (160, 192), "elic": (192, 128)}
+REST_KW = {"flexrate": dict(N=32), "dmc": dict(feat=16, N=32),
+           "elic": dict(N=16, M=24, groups=(4, 4, 16))}
+REST_RATE = (1, 0.66)  # Flex-Rate's level n and interpolation l
+#: DMC's chain: (ratio, q) of each P-frame, the first from frame 0 with an
+#: empty DPB, each later one from the sharded DPB before it. At 1.5 the 160
+#: rows go to 104, edge-padded to 128.
+REST_DMC_CHAIN = ((1.0, 0.0), (1.5, 1.3))
+
+
+def rest_frames(family: str):
+    """The family's seeded frames at REST_FRAMES: the B-frame triple
+    (spatial_frames) for Flex-Rate, its x_current for ELIC, and for DMC
+    frames 0, 1, 2 of a texture drifting by noise (frame 0 the first
+    reference)."""
+    import numpy as np
+
+    h, w = REST_FRAMES[family]
+    if family == "flexrate":
+        return spatial_frames(h, w)
+    if family == "elic":
+        return spatial_frames(h, w)[1:2]
+    rng = np.random.default_rng(3)
+    base = rng.random((1, h, w, 3), dtype=np.float32)
+    drift = 0.03 * rng.standard_normal((3, h, w, 3)).astype(np.float32)
+    xs = np.clip(base + np.cumsum(drift, axis=0), 0, 1)
+    return tuple(np.ascontiguousarray(x[None]) for x in xs)
+
+
+def rest_model(family: str, state=None, seed: int | None = None):
+    """The narrow BidirFlowRef, PFrameDMC or ELIC of REST_KW, with
+    ``state`` loaded; or with the models' own seeded initialisers
+    (``seed``; Flex-Rate's flow-refinement head seeded as chip_smoke.py
+    seeds it), for the card, where tpuvc is not installed."""
+    import torch
+
+    from tpuvc_torch.models.dmc import PFrameDMC
+    from tpuvc_torch.models.elic import ELIC
+    from tpuvc_torch.models.flexrate import BidirFlowRef
+
+    cls = {"flexrate": BidirFlowRef, "dmc": PFrameDMC, "elic": ELIC}[family]
+    if seed is None:
+        model = cls(**REST_KW[family])
+        model.load_state_dict(state, strict=True)
+    else:
+        import chip_smoke
+
+        model = cls(generator=torch.Generator().manual_seed(seed), **REST_KW[family])
+        if family == "flexrate":
+            chip_smoke.seed_zero_heads(model, torch.Generator().manual_seed(seed + 1))
+    return model.eval()
+
+
+def spatial_rest(mesh, models: dict) -> dict:
+    """Flex-Rate, DMC's chain and ELIC (``models`` by family), H-sharded
+    over the mesh: per run, x_hat gathered, the bits, sizes, rows, the
+    stats and the warp kernel's launches; DMC's DPBs gathered too (each
+    next frame's reference starts from them)."""
+    import torch
+
+    from tpuvc_torch.ops import warp
+    from tpuvc_torch.parallel import spatial as S
+
+    def run(model, *args, **kw):
+        stats = S.SpatialStats()
+        before = warp.warp_kernel.launches
+        got = S.spatial_forward(mesh, model, *args, stats=stats, **kw)
+        return got, {"x_hat": S.gather_rows(mesh, got["x_hat"]).cpu(),
+                     "rows": tuple(got["x_hat"].x.shape), "stats": stats,
+                     "launches": warp.warp_kernel.launches - before,
+                     **{k: got[k].cpu() for k in ("bits", "sizes")}}
+
+    out = {}
+    for family, model in models.items():
+        rows = S.shard_spatial(mesh, [torch.from_numpy(x).to(mesh.device)
+                                      for x in rest_frames(family)])
+        if family != "dmc":
+            kw = dict(zip(("n", "l"), REST_RATE)) if family == "flexrate" else {}
+            out[(family, 0)] = run(model, *rows, **kw)[1]
+            continue
+        dpb = {"ref_frame": rows[0]}
+        for i, (ratio, q) in enumerate(REST_DMC_CHAIN):
+            got, out[(family, i)] = run(model, rows[i + 1], dpb, ratio=ratio, q=q)
+            dpb = got["dpb"]
+            out[(family, i)]["dpb"] = {
+                k: v if k == "ref_down_ratio" else S.gather_rows(mesh, v).cpu()
+                for k, v in dpb.items()}
+    return out
+
+
+def case_spatial_rest(mesh, inputs):
+    """spatial_rest on the state dicts the test wrote."""
+    return spatial_rest(mesh, {f: rest_model(f, inputs["state"][f]) for f in REST_FRAMES})
+
+
+def case_spatial_rest_card(mesh, inputs):
+    """spatial_rest on the card, the models seeded (rest_model's ``seed``
+    0)."""
+    from tpuvc_torch.ops.precision import set_deterministic
+
+    set_deterministic()
+    return spatial_rest(mesh, {f: rest_model(f, seed=0).to(mesh.device) for f in REST_FRAMES})
+
+
 CASES = {"helpers": case_helpers, "coding": case_coding, "train": case_train,
          "coding_card": case_coding_card, "spatial_ops": case_spatial_ops,
          "spatial_lhbdc": case_spatial_lhbdc, "spatial_card": case_spatial_card,
-         "spatial_v34": case_spatial_v34, "spatial_v4_card": case_spatial_v4_card}
+         "spatial_v34": case_spatial_v34, "spatial_v4_card": case_spatial_v4_card,
+         "spatial_rest": case_spatial_rest, "spatial_rest_card": case_spatial_rest_card}
 
 
 def main(case: str, rank: int, world: int, tmp_dir: str) -> None:

@@ -61,9 +61,10 @@ from tpuvc_torch.ops.warp import warp
 _PHASES = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 
-def part_mask(h: int, w: int, c: int, k: int, device=None) -> torch.Tensor:
-    """(h, w, c) float mask of part k's coded positions."""
-    r = torch.arange(h, device=device)[:, None, None] % 2
+def part_mask(h: int, w: int, c: int, k: int, device=None, y0: int = 0) -> torch.Tensor:
+    """(h, w, c) float mask of part k's coded positions; ``y0``: the row of
+    the frame the mask's first row is (its row parity)."""
+    r = (torch.arange(h, device=device)[:, None, None] + y0) % 2
     s = torch.arange(w, device=device)[None, :, None] % 2
     first = torch.arange(c, device=device)[None, None, :] < c // 2
     (r0, s0), (r1, s1) = _PHASES[k], _PHASES[3 - k]
@@ -91,6 +92,12 @@ def part_scatter(full: torch.Tensor, vals: torch.Tensor, k: int) -> torch.Tensor
 def _q_step(raw: torch.Tensor) -> torch.Tensor:
     """Positive content-adaptive quantization step, ~1 at init."""
     return torch.exp(clip(raw, -3.0, 3.0))
+
+
+def split_params(p: torch.Tensor) -> tuple:
+    """A part's 3N entropy parameters -> (q_step, scales, means)."""
+    qs_raw, scales, means = torch.chunk(p, 3, dim=-1)
+    return _q_step(qs_raw), scales, means
 
 
 class _FourPartCoder(nn.Module):
@@ -157,8 +164,18 @@ class _FourPartCoder(nn.Module):
         adaptor conv over (fused params, decoded so far) for parts 1-3.
         Returns full-resolution (q_step, scales, means)."""
         p = params0 if k == 0 else self.adaptors[k - 1](torch.cat([params0, y_hat], dim=-1))
-        qs_raw, scales, means = torch.chunk(p, 3, dim=-1)
-        return _q_step(qs_raw), scales, means
+        return split_params(p)
+
+    def code_part(self, y, y_hat, y_lik, params, k: int, mode: str, generator=None,
+                  y0: int = 0):
+        """Part k's Laplace step: (y_hat, y_lik) with part k's positions
+        coded from its (q_step, scales, means); ``y0``: the frame's row of
+        y's first row (the parts' row parity)."""
+        q_step, scales, means = params
+        v_hat, lik = self.laplace((y - means) * q_step, scales, mode=mode, generator=generator)
+        m = part_mask(*y.shape[1:], k, device=y.device, y0=y0)
+        return (y_hat + m * (v_hat / q_step + means),
+                y_lik * torch.where(m > 0, lik, torch.ones_like(lik)))
 
     def apply_inv_gain(self, y_hat, q=0.0):
         return y_hat * self._interp(self.inv_gain, q)
@@ -169,23 +186,24 @@ class _FourPartCoder(nn.Module):
         y, z = self.hyper_analysis(y, q=q)
         z_hat, z_lik = self.entropy_bottleneck(z, mode, generator=generator)
         params0 = self.fused_params(z_hat, ctx)
-        B, h, w, N = y.shape
         y_hat = torch.zeros_like(y)
         y_lik = torch.ones_like(y)
         for k in range(4):
-            q_step, scales, means = self.part_params(params0, y_hat, k)
-            v_hat, lik = self.laplace((y - means) * q_step, scales, mode=mode,
-                                      generator=generator)
-            m = part_mask(h, w, N, k, device=y.device)
-            y_hat = y_hat + m * (v_hat / q_step + means)
-            y_lik = y_lik * torch.where(m > 0, lik, torch.ones_like(lik))
-        return y_hat * self._interp(self.inv_gain, q), {"y": y_lik, "z": z_lik}
+            y_hat, y_lik = self.code_part(y, y_hat, y_lik, self.part_params(params0, y_hat, k),
+                                          k, mode, generator)
+        return self.apply_inv_gain(y_hat, q), {"y": y_lik, "z": z_lik}
 
     def aux_loss(self):
         return self.entropy_bottleneck.aux_loss()
 
 
 MV_FEAT = 8  # propagated motion feature channels (DCVC ref_mv_feature)
+
+
+def down_size(H: int, W: int, ratio: float) -> tuple[int, int]:
+    """The (h, w) a frame's flow is estimated at for a down ratio: H/ratio
+    and W/ratio rounded down to multiples of 8, at least 64."""
+    return (max(int(round(H / ratio)) // 8 * 8, 64), max(int(round(W / ratio)) // 8 * 8, 64))
 
 
 class PFrameDMC(nn.Module):
@@ -252,8 +270,7 @@ class PFrameDMC(nn.Module):
         H, W = x.shape[-3], x.shape[-2]
         if ratio == 1.0:
             return self.optic_flow(x, ref_frame)
-        h = max(int(round(H / ratio)) // 8 * 8, 64)
-        w = max(int(round(W / ratio)) // 8 * 8, 64)
+        h, w = down_size(H, W, ratio)
         # Replicate-pad to x64 so the SPyNet pyramid stays even at every
         # level, then crop the flow back.
         xd, _ = pad_to_multiple(resize_antialias(x, h, w), 64, mode="edge")

@@ -121,6 +121,23 @@ class FlexResidualCompressor(GainedHyperprior):
     out_channels = 3
 
 
+def project_flow(flow, t: float = 0.5):
+    """The predicted bidirectional flow (4 channels) projected to time t
+    (linear motion) -> (flow_t_0, flow_t_1)."""
+    flow_0_1, flow_1_0 = flow[..., :2], flow[..., 2:4]
+    flow_t_0 = -(1 - t) * t * flow_0_1 + t * t * flow_1_0
+    flow_t_1 = (1 - t) * (1 - t) * flow_0_1 - t * (1 - t) * flow_1_0
+    return flow_t_0, flow_t_1
+
+
+def blend(mask_logits, x_b, x_a):
+    """The two warped references blended by the 2-channel soft mask."""
+    m = torch.sigmoid(mask_logits)
+    w1 = 0.5 * m[..., 0:1]
+    w2 = 0.5 * m[..., 1:2]
+    return (w1 * x_b + w2 * x_a) / (w1 + w2 + 1e-8)
+
+
 class BidirFlowRef(nn.Module):
     """The Flex-Rate B-frame codec: flow prediction plus a coded refinement.
     ``generator`` draws the initial weights (tpuvc's initialisers); a
@@ -141,10 +158,7 @@ class BidirFlowRef(nn.Module):
         """Predict the bidirectional flow and project it to time t (linear
         motion); -> (flow_t_0, flow_t_1, the 16-channel motion context)."""
         x = torch.cat([x0, x1], dim=-1)
-        flow = self.flow_predictor(x)
-        flow_0_1, flow_1_0 = flow[..., :2], flow[..., 2:4]
-        flow_t_0 = -(1 - t) * t * flow_0_1 + t * t * flow_1_0
-        flow_t_1 = (1 - t) * (1 - t) * flow_0_1 - t * (1 - t) * flow_1_0
+        flow_t_0, flow_t_1 = project_flow(self.flow_predictor(x), t)
         xt1 = warp(x0, flow_t_0, compat="flexrate")
         xt2 = warp(x1, flow_t_1, compat="flexrate")
         context = torch.cat([flow_t_0, flow_t_1, x, xt1, xt2], dim=-1)
@@ -155,10 +169,7 @@ class BidirFlowRef(nn.Module):
         x_b = warp(x_before, mv_before, compat="flexrate")
         x_a = warp(x_after, mv_after, compat="flexrate")
         ctx = torch.cat([mv_before, mv_after, x_before, x_after, x_b, x_a], dim=-1)
-        m = torch.sigmoid(self.mask(ctx))
-        w1 = 0.5 * m[..., 0:1]
-        w2 = 0.5 * m[..., 1:2]
-        return (w1 * x_b + w2 * x_a) / (w1 + w2 + 1e-8)
+        return blend(self.mask(ctx), x_b, x_a)
 
     def forward(self, x_before, x_current, x_after, n, l=1.0, mode: str = "noise",
                 generator: torch.Generator | None = None):

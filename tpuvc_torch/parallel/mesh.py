@@ -22,8 +22,8 @@ made here, one path for every collective.
 
 ``shard_spatial`` (H sharded across devices) lives in
 :mod:`tpuvc_torch.parallel.spatial`: explicit row fetches between the ranks
-take the place of the halo exchanges XLA's partitioner inserts, and LHBDC's
-forward runs there with its rows sharded (``spatial_forward``).
+take the place of the halo exchanges XLA's partitioner inserts, and every
+family's forward runs there with its rows sharded (``spatial_forward``).
 """
 
 from __future__ import annotations

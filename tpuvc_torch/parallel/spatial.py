@@ -1,6 +1,7 @@
 """Spatial sharding: the rows of NHWC frames split across the ranks of a mesh
 (port of tpuvc.parallel.mesh.shard_spatial and of the H-sharded forwards of
-LHBDC, FlowGuidedB and DeformB that XLA's partitioner gives tpuvc).
+every tpuvc family that XLA's partitioner gives tpuvc: LHBDC, Flex-Rate,
+FlowGuidedB, DeformB, DMC and ELIC).
 
 tpuvc places frames with H sharded over its 1-D mesh and XLA's SPMD
 partitioner inserts a halo exchange for every conv and a collective for
@@ -26,10 +27,15 @@ from the ranks that own them, here, explicitly:
   shuffle, pools, bilinear resizes, pads and crops.
   Pointwise and per-pixel ops (activations, GDN, gains, the entropy models
   in ``dequantize`` mode, channel concat and chunk) run on the local rows as
-  they are; the checkerboard masks take the parity of the rank's first row.
-- Transposed convs run whole on every rank (the input gathered, the
-  unsharded call, the rank's rows kept): cuDNN sums a window's transposed
-  conv in another order than the frame's (``Spatial.deconv``).
+  they are; the checkerboard masks and DMC's four part masks take the
+  parity of the rank's first row.
+- Some ops run whole on every rank (``Spatial.whole``: the input
+  gathered, the unsharded call, the rank's rows kept), where the H100 sums
+  a window in another order than the frame and a forward's latents flip:
+  transposed convs (``Spatial.deconv``); for DMC, whose four parts turn
+  one flipped latent into many, also SPyNet's flow upsampling and its
+  blocks at 1/8 of the frame's rows or fewer, the antialiased resizes, the
+  flow's resize back and the MV analysis's first conv.
 - The warp and the deform conv. Flows and deform offsets reach anywhere,
   so a rank gathers the whole reference (or feature map) and computes only
   its own output rows: ``ops.warp.warp(..., y0)``,
@@ -38,7 +44,13 @@ from the ranks that own them, here, explicitly:
 - Module forwards, in the order of each module's own ``forward``, on the
   module's own parameters: SPyNet, MaskUNet, MeanScaleHyperprior and LHBDC;
   MSFeature, FlowNET, TemporalEnc, the Reconstructors, CondELIC,
-  OffsetDiversity, FlowGuidedB and DeformB (:func:`spatial_forward`).
+  OffsetDiversity, FlowGuidedB and DeformB; UNet, GainedHyperprior and
+  Flex-Rate's BidirFlowRef; DMC's four-part coder and one P-frame of
+  PFrameDMC (its DPB as rows in and out, so P-frames chain sharded); ELIC
+  (:func:`spatial_forward`, each family on its own positional inputs). The
+  warps of every family (Flex-Rate's ``flexrate`` ones, DMC's ``exact``
+  ones over 3 and 48 channels) run at the rank's rows, each counted in
+  :class:`SpatialStats`.
 
 Ranks that share a card use gloo, which moves CUDA tensors through host
 copies; NCCL moves them where each rank has its own card. The forward is
@@ -54,21 +66,32 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from tpuvc_torch.entropy.emath import likelihood_to_bits, per_sample_bits
+from tpuvc_torch.entropy.emath import clip, likelihood_to_bits, per_sample_bits
 from tpuvc_torch.entropy.quant import quantize, ste_round
 from tpuvc_torch.models import layers as L
 from tpuvc_torch.models.cond_elic import _ChannelContext, _EntropyParams, _Head, _SynthStage
 from tpuvc_torch.models.deform_b import DeformB, _head_to_deform
+from tpuvc_torch.models.dmc import MV_FEAT, PFrameDMC, down_size, split_params
+from tpuvc_torch.models.elic import ELIC
+from tpuvc_torch.models.flexrate import BidirFlowRef, blend, project_flow
 from tpuvc_torch.models.flowguided_b import FlowGuidedB, convert_scales
 from tpuvc_torch.models.lhbdc import LHBDC
 from tpuvc_torch.models.ms_feature import _ConvRBB
 from tpuvc_torch.models.spynet import preprocess
-from tpuvc_torch.models.unet import _maxpool2
+from tpuvc_torch.models.unet import _avgpool2, _lrelu, _maxpool2
 from tpuvc_torch.ops import checkerboard
 from tpuvc_torch.ops import warp as warp_ops
 from tpuvc_torch.ops.checkerboard import CheckerboardConv
 from tpuvc_torch.ops.pad import _pad_index
-from tpuvc_torch.ops.resample import _resize_matrix, _resize_matrix_on, avg_pool2d, pixel_shuffle
+from tpuvc_torch.ops.resample import (
+    _resize_matrix,
+    _resize_matrix_on,
+    avg_pool2d,
+    bilinear_resize,
+    pixel_shuffle,
+    resize_antialias,
+    upsample2x_flow,
+)
 from tpuvc_torch.parallel.mesh import Mesh, _staged, _tree_map
 
 # -- layout -------------------------------------------------------------------
@@ -327,17 +350,23 @@ class Spatial:
 
         return self._windowed(x, H_out, span, op)
 
+    def whole(self, x: Rows, fn) -> Rows:
+        """``fn`` (any op along H) of the whole input on every rank, which
+        keeps its own rows of the output: the unsharded forward's own call,
+        for ops whose windows the H100 sums otherwise than the whole frame
+        (cuDNN's convs, cuBLAS's matmuls)."""
+        y = fn(self.fetch(x, lambda r: np.arange(x.H)))
+        a, b = self.rows(y.shape[1])
+        return Rows(y[:, a:b], y.shape[1])
+
     def deconv(self, x: Rows, deconv: L.Deconv) -> Rows:
-        """``layers.Deconv`` (a stride-s transposed conv) of the whole input
-        on every rank, which keeps its own rows: the unsharded forward's own
-        call. Output rows ``[a, b)`` need only input rows ``[ceil((a + p - k
-        + 1)/s), floor((b - 1 + p)/s)]`` (p = k//2), but cuDNN sums a
-        window's transposed conv in another order than the whole frame's at
-        every shape of the v3/v4 codecs on the H100, and in their forwards
-        those sums flip quantized latents (PERF.md, PR 14)."""
-        full = self.fetch(x, lambda r: np.arange(x.H))
-        a, b = self.rows(x.H * deconv.stride)
-        return Rows(deconv(full)[:, a:b], x.H * deconv.stride)
+        """``layers.Deconv`` (a stride-s transposed conv), :meth:`whole`.
+        Output rows ``[a, b)`` need only input rows ``[ceil((a + p - k +
+        1)/s), floor((b - 1 + p)/s)]`` (p = k//2), but cuDNN sums a window's
+        transposed conv in another order than the whole frame's at every
+        shape of the v3/v4 codecs on the H100, and in their forwards those
+        sums flip quantized latents (PERF.md §6)."""
+        return self.whole(x, deconv)
 
     def pixel_shuffle(self, x: Rows, r: int) -> Rows:
         """Output row y is input row y // r."""
@@ -387,10 +416,21 @@ class Spatial:
 
         return self._windowed(x, out_h, span, op)
 
+    def resize_antialias(self, x: Rows, out_h: int, out_w: int) -> Rows:
+        """``resample.resize_antialias`` (DMC's downsampled frames),
+        :meth:`whole`. A window of output rows needs only the band of about
+        2·H/out_h input rows a row of the antialias matrix reaches, but the
+        band's matmuls sum otherwise than the whole frame's on the H100, and
+        DMC's four parts turn the flips that follow into many (PERF.md
+        §6); a 3-channel frame costs little to gather."""
+        return self.whole(x, lambda t: resize_antialias(t, out_h, out_w))
+
     def upsample2x_flow(self, flow: Rows) -> Rows:
-        """``resample.upsample2x_flow``."""
-        up = self.resize(flow, 2 * flow.H, 2 * flow.x.shape[2], align_corners=True)
-        return up.map(lambda t: t * 2.0)
+        """``resample.upsample2x_flow`` (SPyNet's pyramid step),
+        :meth:`whole`: a window's matmuls sum otherwise than the whole
+        level's on the H100 at the pyramid's shapes, which flips DMC's
+        latents (PERF.md §6); a 2-channel flow costs little to gather."""
+        return self.whole(flow, upsample2x_flow)
 
     def upsample_flow(self, flow: Rows, factor: int) -> Rows:
         """``resample.upsample_flow``."""
@@ -530,14 +570,20 @@ def _per_pixel(fn, *rows: Rows) -> tuple:
     return tuple(Rows(t, rows[0].H) for t in fn(*(r.x for r in rows)))
 
 
+def _run(sp: Spatial, layers, x: Rows, act=None) -> Rows:
+    """``layers`` in turn, ``act`` after each but the last."""
+    layers = list(layers)
+    for i, lay in enumerate(layers):
+        x = layer(sp, lay, x)
+        if act is not None and i < len(layers) - 1:
+            x = x.map(act)
+    return x
+
+
 def _chain(sp: Spatial, module, x: Rows, names, act=None) -> Rows:
     """``module``'s submodules ``names`` in turn, ``act`` after each but
     the last."""
-    for i, name in enumerate(names):
-        x = layer(sp, getattr(module, name), x)
-        if act is not None and i < len(names) - 1:
-            x = x.map(act)
-    return x
+    return _run(sp, (getattr(module, name) for name in names), x, act)
 
 
 def _blocks(n: int) -> list:
@@ -582,22 +628,31 @@ def layer(sp: Spatial, module, x: Rows) -> Rows:
         out = layer(sp, module.SubpelConv_0, x).map(L.leaky_relu)
         out = layer(sp, module.GDN_0, layer(sp, module.Conv_0, out))
         return out.map(torch.add, layer(sp, module.SubpelConv_1, x))
+    if isinstance(module, L.ResidualUnit):
+        out = _chain(sp, module, x, ("Conv_0", "Conv_1", "Conv_2"), F.relu)
+        return out.map(lambda t, i: F.relu(t + i), x)
+    if isinstance(module, L.AttentionBlock):
+        a = _chain(sp, module, x, [f"ResidualUnit_{i}" for i in range(3)])
+        b = _chain(sp, module, x, [f"ResidualUnit_{i}" for i in range(3, 6)])
+        gate = layer(sp, module.Conv_0, b)
+        return x.map(lambda t, a, g: t + a * torch.sigmoid(g), a, gate)
     raise TypeError(f"no sharded forward for {type(module).__name__}")
 
 
-def hyperprior_forward(sp: Spatial, m, x: Rows, mode: str = "dequantize") -> dict:
+def hyperprior_forward(sp: Spatial, m, x: Rows, mode: str = "dequantize",
+                       rate: tuple | None = None) -> dict:
     """``MeanScaleHyperprior.forward``: g_a, h_a, the bottleneck, h_s, the
-    Gaussian conditional and g_s, the entropy models on the local rows."""
-    y = x
-    for lay in m.g_a_layers:
-        y = layer(sp, lay, y)
-    z = y
-    for i, c in enumerate(m.h_a_convs):
-        z = layer(sp, c, z)
-        if i < len(m.h_a_convs) - 1:
-            z = z.map(L.leaky_relu)
+    Gaussian conditional and g_s, the entropy models on the local rows.
+    With ``rate`` (a level n and an interpolation l) ``GainedHyperprior.
+    forward``: its four per-channel gain units, on the local rows, after
+    g_a and h_a and before h_s and g_s."""
+    def gain(unit, t: Rows) -> Rows:
+        return t if rate is None else t.map(lambda v: getattr(m, unit)(v, *rate))
+
+    y = gain("gain_unit", _run(sp, m.g_a_layers, x))
+    z = gain("hyper_gain_unit", _run(sp, m.h_a_convs, y, L.leaky_relu))
     z_hat, z_lik = _per_pixel(lambda t: m.entropy_bottleneck(t, mode), z)
-    h = layer(sp, m.h_s_conv0, z_hat).map(L.leaky_relu)
+    h = layer(sp, m.h_s_conv0, gain("hyper_inv_gain_unit", z_hat)).map(L.leaky_relu)
     h = layer(sp, m.h_s_up0, h).map(L.leaky_relu)
     h = layer(sp, m.h_s_conv1, h).map(L.leaky_relu)
     h = layer(sp, m.h_s_up1, h).map(L.leaky_relu)
@@ -606,9 +661,8 @@ def hyperprior_forward(sp: Spatial, m, x: Rows, mode: str = "dequantize") -> dic
         scales, means = torch.chunk(params, 2, dim=-1)
         return m.gaussian(t, scales, means=means, mode=mode)
 
-    out, y_lik = _per_pixel(gaussian, y, layer(sp, m.h_s_out, h))
-    for lay in m.g_s_layers:
-        out = layer(sp, lay, out)
+    y_hat, y_lik = _per_pixel(gaussian, y, layer(sp, m.h_s_out, h))
+    out = _run(sp, m.g_s_layers, gain("inv_gain_unit", y_hat))
     return {"x_hat": out, "likelihoods": {"y": y_lik.x, "z": z_lik.x}}
 
 
@@ -624,7 +678,11 @@ def basic_block_forward(sp: Spatial, block, x: Rows) -> Rows:
 
 def spynet_forward(sp: Spatial, net, first: Rows, second: Rows) -> Rows:
     """``SPyNet.forward``: the pyramid's depth and the zero initial flow
-    follow the global shape; each level warps the gathered ``second``."""
+    follow the global shape; each level warps the gathered ``second``. The
+    blocks of the levels at 1/8 of the frame's rows or fewer run
+    :meth:`Spatial.whole`: cuDNN sums their 7x7 convs' windows otherwise
+    than the whole level's on the H100, and DMC's four parts turn a flipped
+    latent into many (PERF.md §6); those levels cost little."""
     firsts, seconds = [first.map(preprocess)], [second.map(preprocess)]
     for _ in range(5):
         if firsts[0].H > 32 or firsts[0].x.shape[2] > 32:
@@ -641,7 +699,11 @@ def spynet_forward(sp: Spatial, net, first: Rows, second: Rows) -> Rows:
         warped = sp.warp(seconds[level], up, net.warp_compat)
         inp = cat([firsts[level], warped, up], dim=-1)
         block = getattr(net, f"basic_{min(level, net.num_levels - 1)}")
-        flow = basic_block_forward(sp, block, inp).map(torch.add, up)
+        if 8 * inp.H <= first.H:
+            flow = sp.whole(inp, block)
+        else:
+            flow = basic_block_forward(sp, block, inp)
+        flow = flow.map(torch.add, up)
     return flow
 
 
@@ -658,6 +720,27 @@ def mask_unet_forward(sp: Spatial, net, x: Rows) -> Rows:
     t = conv_relu("Conv_5", cat([sp.up2(t), c2], dim=-1))
     t = conv_relu("Conv_6", cat([sp.up2(t), c1], dim=-1))
     return layer(sp, net.Conv_7, t).map(torch.sigmoid)
+
+
+def unet_forward(sp: Spatial, net, x: Rows) -> Rows:
+    """``UNet.forward`` (Flex-Rate's flow predictor and blend mask): two
+    3x3 convs a level, leaky-ReLU 0.1, avg-pool down, then up with skips."""
+    convs = iter(getattr(net, f"Conv_{i}") for i in range(net.n_convs))
+
+    def conv_act(t):
+        return layer(sp, next(convs), t).map(_lrelu)
+
+    skips = []
+    for i in range(net.depth):
+        x = conv_act(conv_act(x))
+        if i < net.depth - 1:
+            skips.append(x)
+            x = sp.pool(x, 2, _avgpool2)
+    x = conv_act(x)
+    for i in reversed(range(net.depth - 1)):
+        x = cat([layer(sp, next(convs), sp.up2(x)), skips[i]], dim=-1)
+        x = conv_act(conv_act(x))
+    return layer(sp, next(convs), x)
 
 
 def _split(x: Rows, n: int) -> list[Rows]:
@@ -715,6 +798,37 @@ def lhbdc_forward(sp: Spatial, model, x_before: Rows, x_current: Rows, x_after: 
     }
 
 
+def flexrate_forward(sp: Spatial, m, x_before: Rows, x_current: Rows, x_after: Rows, n,
+                     l=1.0) -> dict:
+    """``BidirFlowRef.forward(x_before, x_current, x_after, n, l,
+    "dequantize")``: ``process`` (the UNet's flow projected to t = 0.5, both
+    references warped), the gained flow codec, ``compensate`` (four
+    ``flexrate`` warps in all, the mask UNet's blend), the gained residual
+    codec."""
+    x = cat([x_before, x_after], dim=-1)
+    mv_before, mv_after = _per_pixel(project_flow, unet_forward(sp, m.flow_predictor, x))
+    xt1 = sp.warp(x_before, mv_before, "flexrate")
+    xt2 = sp.warp(x_after, mv_after, "flexrate")
+    context = cat([mv_before, mv_after, x, xt1, xt2], dim=-1)
+    flow_out = hyperprior_forward(sp, m.flow_compressor, cat([context, x_current], dim=-1),
+                                  rate=(n, l))
+    hat = flow_out["x_hat"]
+    mv_before = mv_before.map(lambda t, f: t + f[..., :2], hat)
+    mv_after = mv_after.map(lambda t, f: t + f[..., 2:4], hat)
+    x_b = sp.warp(x_before, mv_before, "flexrate")
+    x_a = sp.warp(x_after, mv_after, "flexrate")
+    ctx = cat([mv_before, mv_after, x_before, x_after, x_b, x_a], dim=-1)
+    x_comp = unet_forward(sp, m.mask, ctx).map(blend, x_b, x_a)
+    res_out = hyperprior_forward(sp, m.residual_compressor, x_current.map(torch.sub, x_comp),
+                                 rate=(n, l))
+    liks = list(flow_out["likelihoods"].values()) + list(res_out["likelihoods"].values())
+    bits, per_sample = sp.bits(liks)
+    size = sum(per_sample)
+    return {"x_hat": x_comp.map(torch.add, res_out["x_hat"]), "x_comp": x_comp,
+            "bits": sum(bits), "size": size, "sizes": size,
+            "rate": size / (x_current.H * x_current.x.shape[2])}
+
+
 def ms_feature_forward(sp: Spatial, m, x: Rows) -> tuple:
     """``MSFeature.forward``: the /2, /4, /8 pyramid."""
     l1 = layer(sp, m._ConvRBB_0, x)
@@ -753,6 +867,17 @@ def reconstructor_forward(sp: Spatial, m, x1: Rows, x2: Rows, x3: Rows) -> Rows:
     return stage(layer(sp, m.Conv_1, cat([x1, l2], dim=-1)), 2)
 
 
+def _group_params(sp: Spatial, m, i: int, curr_q: Rows, prev: Rows | None, hyper: Rows) -> Rows:
+    """Channel group i's entropy parameters (ELIC's and CondELIC's): the
+    checkerboard context of its quantized anchors ``curr_q``, the channel
+    context of the earlier groups ``prev`` (i > 0), the hyper prior."""
+    ctx = sp.keep_non_anchor(layer(sp, m.context_prediction_models[i], sp.keep_anchor(curr_q)))
+    parts = [ctx, hyper]
+    if i > 0:
+        parts.insert(1, layer(sp, m.channel_context_models[i - 1], prev))
+    return layer(sp, m.entropy_parameters[i], cat(parts, dim=-1))
+
+
 def cond_elic_forward(sp: Spatial, m, inputs, conds, temporal: Rows, s,
                       x_pixel: Rows | None = None) -> dict:
     """``CondELIC.forward(inputs, conds, temporal, s, "dequantize",
@@ -787,13 +912,8 @@ def cond_elic_forward(sp: Spatial, m, inputs, conds, temporal: Rows, s,
     bounds = np.cumsum((0,) + tuple(m.groups))
     for i in range(len(m.groups)):
         curr_y = y.map(lambda t, i=i: t[..., bounds[i]:bounds[i + 1]])
-        ctx = sp.keep_non_anchor(layer(sp, m.context_prediction_models[i],
-                                       sp.keep_anchor(curr_y.map(ctx_quant))))
-        parts = [ctx, hyper]
-        if i > 0:
-            prev = y.map(lambda t, i=i: ctx_quant(t[..., :bounds[i]]))
-            parts.insert(1, layer(sp, m.channel_context_models[i - 1], prev))
-        params = layer(sp, m.entropy_parameters[i], cat(parts, dim=-1))
+        prev = y.map(lambda t, i=i: ctx_quant(t[..., :bounds[i]])) if i > 0 else None
+        params = _group_params(sp, m, i, curr_y.map(ctx_quant), prev, hyper)
         likelihoods[f"y_{i}"] = _per_pixel(gaussian, curr_y, params)[1].x
 
     x = y.map(lambda t: ste_round(t) * invgain)
@@ -906,28 +1026,160 @@ def deform_b_forward(sp: Spatial, m, x_before: Rows, x_current: Rows, x_after: R
     return _b_frame_totals(sp, x_hat, xcur, off, res)
 
 
+def _zeros(like: Rows, channels: int) -> Rows:
+    """Zeros of ``like``'s rows with ``channels`` channels (a prior or DPB
+    entry a first P-frame lacks)."""
+    return like.map(lambda t: torch.zeros(t.shape[:3] + (channels,), dtype=t.dtype,
+                                          device=t.device))
+
+
+def four_part_forward(sp: Spatial, c, y: Rows, ctx: Rows | None, q=0.0) -> tuple:
+    """``_FourPartCoder.forward(y, ctx, "dequantize", q=q)``: the gained
+    hyper analysis, the bottleneck, the fused hyper and temporal prior (a
+    zero prior without ``ctx``), four parts through the adaptors, each
+    part's mask at the parity of the rank's first row, the inverse gain.
+    -> (y_hat, {"y", "z"} likelihoods of this rank's rows)."""
+    y = y.map(lambda t: t * c._interp(c.gain, q))
+    z = _chain(sp, c, y, ("h_a1", "h_a2", "h_a3"), F.relu)
+    z_hat, z_lik = _per_pixel(lambda t: c.entropy_bottleneck(t, "dequantize"), z)
+    p = _chain(sp, c, z_hat, ("h_s1", "h_s2", "h_s3"), F.relu)
+    t = _chain(sp, c, _zeros(p, c.N) if ctx is None else ctx, ("t_prior1", "t_prior2"), F.relu)
+    params0 = _chain(sp, c, cat([p, t], dim=-1), ("fusion1", "fusion2"), F.relu)
+    y0 = sp.rows(y.H)[0]
+    y_hat, y_lik = y.map(torch.zeros_like), y.map(torch.ones_like)
+    for k in range(4):
+        params = params0 if k == 0 else layer(sp, c.adaptors[k - 1],
+                                              cat([params0, y_hat], dim=-1))
+        y_hat, y_lik = _per_pixel(
+            lambda yt, yh, yl, pt, k=k: c.code_part(yt, yh, yl, split_params(pt), k,
+                                                    "dequantize", y0=y0),
+            y, y_hat, y_lik, params)
+    return y_hat.map(lambda t: c.apply_inv_gain(t, q)), {"y": y_lik.x, "z": z_lik.x}
+
+
+def estimate_mv(sp: Spatial, m, x: Rows, ref: Rows, ratio: float) -> Rows:
+    """``PFrameDMC.estimate_mv``: SPyNet at ratio 1; else both frames
+    resized (antialiased) to ``down_size``, edge-padded to x64 (the layout
+    goes from the h rows' to the padded rows'), SPyNet, cropped, resized
+    back to H and scaled by W / w. The resizes run whole on every rank."""
+    if ratio == 1.0:
+        return spynet_forward(sp, m.optic_flow, x, ref)
+    H, W = x.H, x.x.shape[2]
+    h, w = down_size(H, W, ratio)
+    xd = sp.pad_to_multiple(sp.resize_antialias(x, h, w), 64, mode="edge")[0]
+    rd = sp.pad_to_multiple(sp.resize_antialias(ref, h, w), 64, mode="edge")[0]
+    mv = sp.unpad(spynet_forward(sp, m.optic_flow, xd, rd), (h, w))
+    # the flow's resize runs whole, as the frames' (Spatial.resize_antialias)
+    return sp.whole(mv, lambda t: bilinear_resize(t, H, W)).map(lambda t: t * (W / w))
+
+
+def dmc_forward(sp: Spatial, m, x: Rows, dpb: dict, ratio: float = 1.0, q=0.0) -> dict:
+    """``PFrameDMC.forward(x, dpb, ratio, "dequantize", q=q)`` of one
+    P-frame: the flow (:func:`estimate_mv`), ``code_mv``,
+    ``motion_compensate`` (the 48-channel feature map and the reference
+    warped, ``exact``), ``code_frame``. ``dpb`` holds :class:`Rows` (or
+    None, or lacks an entry: a first P-frame after an I-frame); the updated
+    DPB comes back as :class:`Rows`, ready for the next sharded P-frame."""
+    ref_frame = dpb["ref_frame"]
+    est_mv = estimate_mv(sp, m, x, ref_frame, ratio)
+    # code_mv; the analysis's first conv (10 channels in, at full resolution)
+    # runs whole: cuDNN sums its windows otherwise on the H100 (PERF.md §6)
+    mv_feat = dpb.get("ref_mv_feature")
+    y = cat([est_mv.map(lambda t: t / ratio),
+             _zeros(est_mv, MV_FEAT) if mv_feat is None else mv_feat], dim=-1)
+    y = sp.whole(y, m.mv_g_a[0]).map(L.leaky_relu)
+    mv_y_hat, mv_lik = four_part_forward(sp, m.mv_coder, _run(sp, m.mv_g_a[1:], y, L.leaky_relu),
+                                         dpb.get("ref_mv_y"), q)
+    mv_feature = mv_y_hat
+    for lay in m.mv_g_s:
+        mv_feature = layer(sp, lay, mv_feature).map(L.leaky_relu)
+    mv_hat = layer(sp, m.mv_out, mv_feature).map(lambda t: t * ratio)
+    # motion_compensate
+    ref_feature = dpb.get("ref_feature")
+    f = _run(sp, [m.feat_in, *m.feat_blocks],
+             cat([ref_frame, _zeros(ref_frame, m.feat) if ref_feature is None else ref_feature],
+                 dim=-1))
+    warped_f = sp.warp(f, mv_hat)
+    warped_x = sp.warp(ref_frame, mv_hat)
+    context = _run(sp, m.ctx_refine, cat([warped_f, warped_x, mv_hat], dim=-1))
+    # code_frame
+    y_hat, y_lik = four_part_forward(sp, m.y_coder, _run(sp, m.g_a_layers,
+                                                         cat([x, context], dim=-1)),
+                                     dpb.get("ref_y"), q)
+    feature = _run(sp, m.recon_head,
+                   cat([_run(sp, m.g_s_layers, y_hat), context], dim=-1))
+    x_hat = layer(sp, m.to_rgb, feature)
+    bits, per_sample = sp.bits(list(mv_lik.values()) + list(y_lik.values()))
+    bits_mv, bits_y = sum(bits[:len(mv_lik)]), sum(bits[len(mv_lik):])
+    total = bits_mv + bits_y
+    return {
+        "x_hat": x_hat, "warped": warped_x, "bits": total, "bits_mv": bits_mv,
+        "bits_y": bits_y, "sizes": sum(per_sample),
+        "rate": total / (x.x.shape[0] * x.H * x.x.shape[2]),
+        "dpb": {"ref_frame": x_hat.map(lambda t: clip(t, 0.0, 1.0)), "ref_feature": feature,
+                "ref_mv_feature": mv_feature, "ref_y": y_hat, "ref_mv_y": mv_y_hat,
+                "ref_down_ratio": ratio},
+    }
+
+
+def elic_forward(sp: Spatial, m, x: Rows) -> dict:
+    """``ELIC.forward(x, "dequantize")`` (``stage2=False``): g_a, h_a, the
+    bottleneck, h_s from round(z), each group's checkerboard and channel
+    context and Gaussian, g_s from round(y)."""
+    y = _run(sp, m.g_a_layers, x)
+    z = _run(sp, m.h_a_layers, y, F.relu)
+    likelihoods = {"z": _per_pixel(lambda t: m.entropy_bottleneck(t, "dequantize"), z)[1].x}
+    hyper = _run(sp, m.h_s_layers, z.map(ste_round), F.relu)
+
+    def gaussian(t, params):
+        scales, means = torch.chunk(params, 2, dim=-1)
+        return m.gaussian(t, scales, means=means, mode="dequantize")
+
+    bounds = np.cumsum((0,) + tuple(m.groups))
+    groups_hat = []
+    for i in range(len(m.groups)):
+        curr_y = y.map(lambda t, i=i: t[..., bounds[i]:bounds[i + 1]])
+        curr_y_hat = curr_y.map(lambda t: quantize(t, "dequantize"))
+        prev = cat(groups_hat, dim=-1) if i > 0 else None
+        params = _group_params(sp, m, i, curr_y_hat, prev, hyper)
+        likelihoods[f"y_{i}"] = _per_pixel(gaussian, curr_y, params)[1].x
+        groups_hat.append(curr_y_hat)
+    bits, per_sample = sp.bits(list(likelihoods.values()))
+    return {"x_hat": _run(sp, m.g_s_layers, y.map(ste_round)), "bits": sum(bits),
+            "sizes": sum(per_sample)}
+
+
 #: Each family's sharded forward, by its model's class.
 FORWARDS = ((LHBDC, lhbdc_forward), (FlowGuidedB, flowguided_b_forward),
-            (DeformB, deform_b_forward))
+            (DeformB, deform_b_forward), (BidirFlowRef, flexrate_forward),
+            (PFrameDMC, dmc_forward), (ELIC, elic_forward))
 
 
 @torch.no_grad()
-def spatial_forward(mesh: Mesh, model, x_before: Rows, x_current: Rows, x_after: Rows,
-                    mode: str = "dequantize", stats: SpatialStats | None = None,
-                    **family_args) -> dict:
-    """The model's ``dequantize`` forward of one B-frame with the frames'
-    rows sharded over ``mesh`` (inputs from :func:`shard_spatial`), by its
-    class: LHBDC, FlowGuidedB (``family_args``: ``s`` and, as its forward's
-    defaults, ``scale1=0.5``, ``scale2=-0.5``, ``down_ratio=1``) or DeformB
-    (``s``). Returns this rank's rows of ``x_hat`` (and LHBDC's ``x_pred``)
-    as :class:`Rows`, and the bits (``bits``; LHBDC's ``bits_flow`` and
-    ``bits_residual``, v3/v4's ``size``), ``sizes`` and ``rate`` summed over
-    the ranks. ``stats`` (a :class:`SpatialStats`) records the fetches,
-    warps and deform convs."""
+def spatial_forward(mesh: Mesh, model, *inputs, mode: str = "dequantize",
+                    stats: SpatialStats | None = None, **family_args) -> dict:
+    """The model's ``dequantize`` forward with the frames' rows sharded over
+    ``mesh`` (inputs from :func:`shard_spatial`), by its class, on each
+    family's own positional inputs:
+
+    - B-frames ``(x_before, x_current, x_after)``: LHBDC; FlowGuidedB
+      (``family_args``: ``s`` and, as its forward's defaults,
+      ``scale1=0.5``, ``scale2=-0.5``, ``down_ratio=1``); DeformB (``s``);
+      Flex-Rate's BidirFlowRef (``n`` and ``l=1.0``);
+    - a P-frame ``(x, dpb)``: PFrameDMC (``ratio=1.0``, ``q=0.0``), the DPB
+      a dict of :class:`Rows` (``ref_frame`` at least);
+    - an I-frame ``(x,)``: ELIC.
+
+    Returns this rank's rows of ``x_hat`` (and LHBDC's ``x_pred``,
+    Flex-Rate's ``x_comp``, DMC's ``warped`` and updated ``dpb``) as
+    :class:`Rows`, and the bits summed over the ranks: ``bits`` (the total),
+    ``sizes`` (per sample) and each family's own (LHBDC's ``bits_flow`` and
+    ``bits_residual``, Flex-Rate's and v3/v4's ``size``, DMC's ``bits_mv``
+    and ``bits_y``, ``rate``). ``stats`` (a :class:`SpatialStats`) records
+    the fetches, warps and deform convs."""
     if mode != "dequantize":
         raise ValueError(f"the spatial forward runs mode='dequantize', not {mode!r}")
     for cls, forward in FORWARDS:
         if isinstance(model, cls):
-            return forward(Spatial(mesh, stats), model, x_before, x_current, x_after,
-                           **family_args)
+            return forward(Spatial(mesh, stats), model, *inputs, **family_args)
     raise TypeError(f"no sharded forward for {type(model).__name__}")
