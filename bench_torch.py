@@ -187,7 +187,7 @@ def main(argv=None) -> int:
     card = torch.cuda.get_device_name(device) if on_card else "cpu"
     emit({"status": "warming", "budget_s": BUDGET_S, "device": card,
           "nvidia_smi": nvidia_smi() if on_card else None})
-    set_deterministic()
+    set_deterministic(device)
 
     def sync():
         if on_card:

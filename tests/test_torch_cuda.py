@@ -1080,3 +1080,225 @@ def test_spatial_rest_forwards_over_4_ranks_on_card(cuda, tmp_path):
                     assert family == "elic" or warps
                     for w in warps:
                         assert w[0] == rows_of(w[2], 4, r)[0]
+
+
+# The memory-pressure decodes: (encoding CLI, decoding CLI, coding
+# arguments, model arguments both CLIs take) at small widths.
+PRESSURE_RUNS = {
+    "lhbdc": ("encode_v", "decode_v", ["--synthetic", "9", "--width", "384", "--height", "256",
+                                       "--gop", "8", "--level_batched", "--max_batch", "2",
+                                       "--compute_dtype", "bfloat16"],
+              ["--init", "random", "--N", "32", "--intra_N", "16", "--intra_M", "24",
+               "--intra_groups", "4,4,16", "--device", "cuda"]),
+    "dmc": ("encode_p", "decode_p", ["--synthetic", "5", "--width", "256", "--height", "256",
+                                     "--adaptive"],
+            ["--init", "random", "--feat", "16", "--N", "32", "--intra_N", "16",
+             "--intra_M", "24", "--intra_groups", "4,4,16", "--device", "cuda"]),
+}
+
+
+@pytest.mark.parametrize("family", list(PRESSURE_RUNS))
+def test_decode_under_memory_pressure_is_bit_exact(cuda, family, tmp_path):
+    """Encode with the card to itself, decode in a fresh process, then again
+    in a fresh process while a ballast process holds all of the card but
+    that decoder's peak + the conv-workspace budget + 2 GiB: both decodes
+    equal the encoder's frames by sha256, and no allocation failed."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import chip_smoke
+    from tpuvc_torch.ops.precision import CONV_WORKSPACE_GIB
+
+    enc, dec, coding, model = PRESSURE_RUNS[family]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    bin_path = str(tmp_path / "x.bin")
+
+    def run(verb, argv):
+        proc = subprocess.run([sys.executable, "-c", chip_smoke.DECODE_IN_A_NEW_PROCESS, verb,
+                               *argv], cwd=root, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    encoded = run(enc, coding + model + ["--bin", bin_path])
+    dec_argv = ["--bin", bin_path, "--out_dir", str(tmp_path / "png"), *model]
+    alone = run(dec, dec_argv)
+    with chip_smoke.ballast(alone["peak_mem_gib"] + CONV_WORKSPACE_GIB + 2) as held:
+        pressed = run(dec, dec_argv)
+    assert held > 0
+    assert alone["sha256"] == encoded["sha256"]
+    assert pressed["sha256"] == encoded["sha256"]
+    assert pressed["num_ooms"] == 0
+
+
+#: Narrow widths of every family for the card's training-determinism runs.
+TRAIN_NARROW = {
+    "lhbdc": ["model.N=32"],
+    "flowguided_b": ["model.N=32", "model.levels=2", "model.feature_channels=(16,32,48)"],
+    "deform_b": ["model.N=32", "model.levels=2"],
+    "flexrate": ["model.N=32", "model.levels=2"],
+    "dmc": ["n_pframes=2"],
+    "elic": ["model.N=32", "model.M=320"],
+}
+
+
+@pytest.mark.parametrize("family", list(TRAIN_NARROW))
+def test_two_training_runs_are_bit_identical_on_card(cuda, family, tmp_path):
+    """The train CLI twice from one seed and one batch stream (batch 2,
+    128x128 crops, 2 steps, both stages of the recursive families) under
+    its deterministic_training: the same parameter bits (the summary's
+    digest), through the kernels' backward."""
+    from tpuvc_torch.cli import train
+
+    runs = [train.main(["--device", "cuda", f"model.family={family}", *TRAIN_NARROW[family],
+                        "batch_size=2", "crop=128", "total_steps=2", "stage2_start=1",
+                        "val_every=100", "workers=0", "prefetch=0",
+                        f"dataset_root={tmp_path}/none", f"checkpoint_dir={tmp_path}/{k}"])
+            for k in range(2)]
+    assert runs[0]["params_sha256"] == runs[1]["params_sha256"]
+    assert runs[0]["metrics"] == runs[1]["metrics"]
+
+
+@pytest.mark.parametrize("kernel, shape", [
+    ("warp", (8, 256, 256, 48)), ("warp", (32, 256, 256, 3)),
+    ("deform", (8, 128, 128, 128)), ("deform", (8, 128, 128, 32)),
+])
+def test_kernel_backward_is_deterministic_under_training(cuda, kernel, shape):
+    """At the training shapes, under deterministic_training: two backward
+    passes of the kernel path give the same bits, and equal the plain
+    version's own autograd bit for bit (the backward is autograd of the
+    plain formulation in both)."""
+    from tpuvc_torch.ops.deform import deform_conv2d, deform_plain
+    from tpuvc_torch.ops.precision import deterministic_training
+    from tpuvc_torch.ops.warp import warp, warp_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    B, H, W, C = shape
+    if kernel == "warp":
+        inputs = (torch.rand(shape, generator=gen, device=cuda),
+                  4.0 * torch.randn((B, H, W, 2), generator=gen, device=cuda))
+        g = torch.randn(shape, generator=gen, device=cuda)
+        fns = (lambda i, f: warp(i, f, "exact"), lambda i, f: warp_plain(i, f, "exact"))
+    else:
+        G, C_out = (16, 64) if C == 128 else (8, 32)
+        inputs = (torch.randn(shape, generator=gen, device=cuda),
+                  2.0 * torch.randn((B, H, W, G * 18), generator=gen, device=cuda),
+                  torch.rand((B, H, W, G * 9), generator=gen, device=cuda),
+                  torch.randn((C_out, C // G, 3, 3), generator=gen, device=cuda) / (9 * C // G),
+                  0.1 * torch.randn((C_out,), generator=gen, device=cuda))
+        g = torch.randn((B, H, W, C_out), generator=gen, device=cuda)
+        fns = (lambda *t: deform_conv2d(*t, G, 3), lambda *t: deform_plain(*t, G, 3))
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_() for t in inputs]
+        return torch.autograd.grad(fn(*ins), ins, g)
+
+    with deterministic_training(cuda):
+        first, second, plain = grads(fns[0]), grads(fns[0]), grads(fns[1])
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.equal(a, b) for a, b in zip(first, plain))
+
+
+def test_entry_point_refuses_a_card_without_the_budget(cuda):
+    """A coder stops before it codes anything where a ballast process
+    leaves less than the conv-workspace budget free, naming the GiB."""
+    import chip_smoke
+    from tpuvc_torch.models.lhbdc import LHBDC, LHBDCCoder
+    from tpuvc_torch.ops.precision import CONV_WORKSPACE_GIB, ConvWorkspaceError
+
+    torch.cuda.empty_cache()
+    model = LHBDC(N=16, generator=torch.Generator().manual_seed(0))
+    with chip_smoke.ballast(CONV_WORKSPACE_GIB / 2):
+        with pytest.raises(ConvWorkspaceError, match=f"needs {CONV_WORKSPACE_GIB} GiB"):
+            LHBDCCoder(model, device="cuda")
+
+
+def _allocate_above_the_budget(cuda, seconds):
+    """Allocate, fill and free blocks above the conv-workspace budget for
+    ``seconds``, each from fresh memory (the cache emptied after each);
+    returns how many."""
+    import time
+
+    from tpuvc_torch.ops.precision import CONV_WORKSPACE_GIB
+
+    big = int((CONV_WORKSPACE_GIB + 1) * 2**30)
+    t0, n = time.perf_counter(), 0
+    while time.perf_counter() - t0 < seconds:
+        block = torch.empty(big + (n % 3) * 2**21, dtype=torch.uint8, device=cuda)
+        block.fill_(1)
+        del block
+        torch.cuda.empty_cache()
+        n += 1
+    return n
+
+
+def _conv_operands(cuda, k):
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    return (torch.randn((1, 8 + k, 64, 64), generator=gen, device=cuda),
+            torch.randn((16, 8 + k, 3, 3), generator=gen, device=cuda))
+
+
+def test_a_window_waits_for_a_pool_task_that_allocates(cuda):
+    """The main thread fixes new conv plans (a window each, the process
+    capped at what it holds + the budget) while a pool task allocates
+    blocks above the budget from fresh memory: each window waits for the
+    task, so neither the task's allocations nor the convs fail."""
+    import threading
+
+    import torch.nn.functional as F
+
+    from tpuvc_torch.coder.parallel import CtxPool
+    from tpuvc_torch.ops import precision
+
+    precision.set_deterministic(cuda)
+    started = threading.Event()
+
+    def allocate():
+        started.set()
+        return _allocate_above_the_budget(cuda, 2.0)
+
+    pool = CtxPool(max_workers=1)
+    try:
+        fut = pool.submit(allocate)
+        started.wait(10)
+        for k in range(8):
+            x, w = _conv_operands(cuda, 100 + k)
+            assert torch.equal(precision.conv(x, w, padding=1), F.conv2d(x, w, padding=1))
+        assert fut.result(timeout=60) > 0
+    finally:
+        pool.shutdown()
+
+
+def test_a_pool_task_window_waits_for_its_submitter(cuda):
+    """A pool task fixes new conv plans while the thread that submitted it
+    (it holds the gate while the task runs) allocates blocks above the
+    budget from fresh memory between convs of a fixed plan, then waits on
+    the task: the windows open only while that thread is parked, and
+    nothing fails."""
+    import torch.nn.functional as F
+
+    from tpuvc_torch.coder.parallel import CtxPool
+    from tpuvc_torch.ops import precision
+
+    precision.set_deterministic(cuda)
+    x0, w0 = _conv_operands(cuda, 200)
+    precision.conv(x0, w0, padding=1)
+
+    def convs():
+        same = []
+        for k in range(8):
+            x, w = _conv_operands(cuda, 300 + k)
+            same.append(torch.equal(precision.conv(x, w, padding=1),
+                                    F.conv2d(x, w, padding=1)))
+        return same
+
+    pool = CtxPool(max_workers=1)
+    try:
+        fut = pool.submit(convs)
+        for _ in range(20):
+            assert _allocate_above_the_budget(cuda, 0.1) > 0
+            precision.conv(x0, w0, padding=1)  # parks while a window waits
+        assert all(fut.result(timeout=60))
+    finally:
+        pool.shutdown()

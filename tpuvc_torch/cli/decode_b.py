@@ -48,7 +48,7 @@ def main(argv=None):
     from tpuvc_torch.ops.precision import policy_from_name, set_deterministic
 
     device = resolve_device(args.device)
-    set_deterministic()
+    set_deterministic(device)
     with open(args.bin, "rb") as f:
         blob = f.read()
     if args.family in ("lhbdc", "flexrate"):

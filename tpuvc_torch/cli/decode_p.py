@@ -62,7 +62,7 @@ def main(argv=None):
     from tpuvc_torch.ops.precision import set_deterministic
 
     device = resolve_device(args.device)
-    set_deterministic()
+    set_deterministic(device)
     with open(args.bin, "rb") as f:
         seq = PSequenceBitstream.deserialize(f.read())
     h, w, n = seq.height, seq.width, len(seq.frames)

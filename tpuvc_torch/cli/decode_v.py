@@ -185,7 +185,7 @@ def main(argv=None):
     from tpuvc_torch.ops.precision import set_deterministic
 
     device = resolve_device(args.device)
-    set_deterministic()
+    set_deterministic(device)
     with open(args.bin, "rb") as f:
         seq = VSequenceBitstream.deserialize(f.read())
     args.family = seq.family

@@ -113,7 +113,7 @@ def main(argv=None):
     from tpuvc_torch.ops.precision import policy_from_name, set_deterministic
 
     device = resolve_device(args.device)
-    set_deterministic()
+    set_deterministic(device)
     coder = make_coder(args, load_model(args), device)
     x_before, _ = prepare_frame(args.ref_1)
     x_after, _ = prepare_frame(args.ref_2)

@@ -96,7 +96,7 @@ def main(argv=None):
     from tpuvc_torch.ops.precision import set_deterministic
 
     device = resolve_device(args.device)
-    set_deterministic()
+    set_deterministic(device)
     frames = load_frames(args)
     h, w = frames.size
     intra_coder, p_coder = build_codecs(args, device)

@@ -359,7 +359,7 @@ def main(argv=None):
     mesh = join_mesh(args.mesh, args.dist_backend, args.device)
     if mesh is not None:
         device = mesh.device
-    set_deterministic()
+    set_deterministic(device)
     frames = load_frames(args)
     h, w = frames.size
     n = len(frames)

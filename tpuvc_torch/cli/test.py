@@ -270,7 +270,7 @@ def main(argv=None):
     apply_overrides(cfg, args.overrides)
     check_unported(cfg)
     device = resolve_device(args.device)
-    set_deterministic()
+    set_deterministic(device)
 
     if cfg.timestamped_output:
         # hydra run-dir layout: outputs/%Y-%m-%d/%H-%M-%S

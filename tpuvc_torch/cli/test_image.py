@@ -56,7 +56,7 @@ def main(argv=None):
     from tpuvc_torch.utils.checkpoint import load_checkpoint
     from tpuvc_torch.utils.convert import params_from_jax
 
-    set_deterministic()
+    set_deterministic(device)
     os.makedirs(cfg.output_dir, exist_ok=True)
     if cfg.dataset.name == "synthetic":
         dataset = SyntheticImages(

@@ -14,7 +14,10 @@ rounding, a random level and down ratio per step), ``deform_b`` and
 ``flexrate`` (two-stage recursive, noise), ``dmc`` (cascaded P-frames,
 straight-through, a random rate level per step). Every step runs the
 forward on ``--device`` (default ``cuda``: the warp and deform kernels; no
-quiet fallback to the CPU) and the backward through autograd. Without the
+quiet fallback to the CPU) and the backward through autograd, under
+PyTorch's deterministic algorithms (``ops.precision.deterministic_training``):
+two runs from one seed give the same bits, the kernels' backward included
+(its gather adds in a fixed order, not with float atomics). Without the
 dataset at ``dataset_root`` the run trains on synthetic septuplets, as
 tpuvc's does.
 
@@ -325,26 +328,33 @@ def params_sha256(params: dict) -> str:
 
 
 def _train(cfg, device_name: str, log, mesh=None) -> dict:
+    """Train under deterministic_training: two runs from one seed and one
+    batch stream give the same bits."""
+    from tpuvc_torch import resolve_device
+    from tpuvc_torch.ops.precision import deterministic_training
+
+    device = resolve_device(device_name) if mesh is None else mesh.device
+    with deterministic_training(device):
+        return _train_on(cfg, device, log, mesh)
+
+
+def _train_on(cfg, device, log, mesh=None) -> dict:
     import numpy as np
     import torch
 
-    from tpuvc_torch import resolve_device
     from tpuvc_torch.data.vimeo import SyntheticSeptuplets, VimeoSeptuplets, make_batch_iterator
     from tpuvc_torch.ops import deform, warp
-    from tpuvc_torch.ops.precision import policy_from_name, set_deterministic
+    from tpuvc_torch.ops.precision import policy_from_name
     from tpuvc_torch.parallel.mesh import all_gather_objects, replicate, shard_batch
     from tpuvc_torch.train.trainer import data_parallel, make_optimizer
     from tpuvc_torch.utils.checkpoint import load_checkpoint, save_checkpoint
     from tpuvc_torch.utils.convert import params_from_jax, params_to_jax
 
-    device = resolve_device(device_name) if mesh is None else mesh.device
     rank0 = mesh is None or mesh.rank == 0
     log.info("config: %s", cfg)
     log.info("seed: %d", cfg.seed)
     if mesh is not None:
         log.info("data-parallel over %d ranks (%s)", mesh.size, mesh.backend)
-    if device.type == "cuda":
-        set_deterministic()
     np_rng = np.random.default_rng(cfg.seed)
 
     if os.path.isdir(cfg.dataset_root):
@@ -449,10 +459,11 @@ def _train(cfg, device_name: str, log, mesh=None) -> dict:
                          if device.type == "cuda" else None),
         "validations": validations,
         "best_bd_rate": bd_ck.best_bd if bd_ck is not None else None,
+        "params_sha256": params_sha256(params),
     }
     if mesh is not None:
         # The ranks applied the same updates: their parameters must agree.
-        digests = all_gather_objects(mesh, params_sha256(params))
+        digests = all_gather_objects(mesh, summary["params_sha256"])
         summary.update(world_size=mesh.size, dist_backend=mesh.backend,
                        rank_params_sha256=digests)
         if len(set(digests)) != 1:

@@ -12,6 +12,8 @@ import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+from tpuvc_torch.ops import precision
+
 _POOL: ThreadPoolExecutor | None = None
 _ASYNC_POOL: ThreadPoolExecutor | None = None
 _LOCK = threading.Lock()
@@ -25,11 +27,25 @@ class CtxPool(ThreadPoolExecutor):
     bare worker thread would run the decoder's entropy-parameter network in
     float32 while the encoder ran it in bfloat16 — a silent enc/dec mismatch
     that desyncs the rANS decode. Each task gets its own Context copy (a
-    Context can be entered by one thread at a time)."""
+    Context can be entered by one thread at a time).
+
+    Each task holds the conv-plan gate (``ops.precision``) while it runs,
+    and its submitter until it finishes; a wait on its future or on the
+    pool's shutdown parks the waiting thread: a plan-fixing window then
+    waits for the device work that runs, and never for a thread that waits
+    for one of the tasks."""
 
     def submit(self, fn, /, *args, **kwargs):
         ctx = contextvars.copy_context()
-        return super().submit(ctx.run, fn, *args, **kwargs)
+        me = threading.current_thread()
+        precision._PLANS.hold()
+        try:
+            fut = super().submit(ctx.run, _holding, fn, *args, **kwargs)
+        except BaseException:
+            precision._PLANS.release(me)
+            raise
+        fut.add_done_callback(lambda _: precision._PLANS.release(me))
+        return _ParkingFuture(fut)
 
     def map(self, fn, *iterables, timeout=None, chunksize=1):
         ctx = contextvars.copy_context()
@@ -37,6 +53,36 @@ class CtxPool(ThreadPoolExecutor):
             lambda *a: ctx.copy().run(fn, *a),
             *iterables, timeout=timeout, chunksize=chunksize,
         )
+
+    def shutdown(self, wait=True, *, cancel_futures=False):
+        with precision._PLANS.parked():
+            super().shutdown(wait, cancel_futures=cancel_futures)
+
+
+def _holding(fn, *args, **kwargs):
+    with precision._PLANS.shared():
+        return fn(*args, **kwargs)
+
+
+class _ParkingFuture:
+    """A CtxPool task's future; its waits park the waiting thread's hold on
+    the conv-plan gate."""
+
+    __slots__ = ("_fut",)
+
+    def __init__(self, fut):
+        self._fut = fut
+
+    def result(self, timeout=None):
+        with precision._PLANS.parked():
+            return self._fut.result(timeout)
+
+    def exception(self, timeout=None):
+        with precision._PLANS.parked():
+            return self._fut.exception(timeout)
+
+    def __getattr__(self, name):
+        return getattr(self._fut, name)
 
 
 def host_pool() -> ThreadPoolExecutor:

@@ -458,7 +458,7 @@ class PFrameDMCCoder:
     def __init__(self, model: PFrameDMC, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            set_deterministic()
+            set_deterministic(self.device)
         self.model = model.to(self.device).eval()
         self.laplace = LaplaceConditional()
         self.y_tables = self.laplace.build_tables()

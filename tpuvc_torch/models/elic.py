@@ -176,7 +176,7 @@ class ELICCoder(GroupCoder):
     def __init__(self, module: ELIC, device=None):
         device = resolve_device(device)
         if device.type == "cuda":
-            set_deterministic()
+            set_deterministic(device)
         super().__init__(module.to(device).eval())
 
     def _code_groups(self, y, hyper, streams=None, per_sample=False, submit=False):

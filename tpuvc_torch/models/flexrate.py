@@ -236,7 +236,7 @@ class FlexRateCoder:
     def __init__(self, model: BidirFlowRef, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            set_deterministic()
+            set_deterministic(self.device)
         self.model = model.to(self.device).eval()
         self.flow_coder = GainedHyperpriorCoder(self.model.flow_compressor)
         self.res_coder = GainedHyperpriorCoder(self.model.residual_compressor)

@@ -214,7 +214,7 @@ class FlowGuidedBCoder:
     def __init__(self, model: FlowGuidedB, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            set_deterministic()
+            set_deterministic(self.device)
         self.model = model.to(self.device).eval()
         self.offset_coder = CondELICCoder(self.model.offset_compressor)
         self.res_coder = CondELICCoder(self.model.residual_compressor)

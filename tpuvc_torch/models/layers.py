@@ -1,7 +1,8 @@
 """Building blocks of the codec transforms (port of tpuvc.models.layers).
 
 Every module takes and returns NHWC tensors, as tpuvc's do. A convolution
-runs ``F.conv2d`` on the NCHW-permuted *view* of its input: the view has
+runs ``F.conv2d`` (through ``precision.conv``, which fixes its cuDNN plan
+to the workspace budget) on the NCHW-permuted *view* of its input: the view has
 channels-last strides, so cuDNN computes in NHWC and the permute back is free.
 Submodule attribute names follow tpuvc's flax names (``Conv_0``, ``GDN_0``,
 ``SubpelConv_0``), so a flax parameter path maps to a state-dict key by
@@ -58,7 +59,7 @@ def conv2d_nhwc(x, weight, bias, stride: int = 1, padding: int = 0):
     if xin.device.type == "cpu" and torch.is_grad_enabled() and (
             x.requires_grad or weight.requires_grad):
         xin = xin.contiguous()
-    y = F.conv2d(xin, weight, stride=stride, padding=padding)
+    y = precision.conv(xin, weight, stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1).float() + bias
 
 
@@ -117,7 +118,7 @@ class Deconv(nn.Module):
         xin = x if dt is None else x.to(dt)
         if dt is not None:
             w, b = w.to(dt), b.to(dt)
-        y = F.conv_transpose2d(
+        y = precision.conv(
             xin.permute(0, 3, 1, 2), w, b, stride=self.stride,
             padding=self.kernel // 2, output_padding=self.stride - 1,
         )

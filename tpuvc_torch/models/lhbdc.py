@@ -158,7 +158,7 @@ class LHBDCCoder:
     def __init__(self, model: LHBDC, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            set_deterministic()
+            set_deterministic(self.device)
         self.model = model.to(self.device).eval()
         self.mv_coder = HyperpriorCoder(self.model.mv_compressor)
         self.res_coder = HyperpriorCoder(self.model.residual_compressor)

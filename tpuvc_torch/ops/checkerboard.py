@@ -17,10 +17,10 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tpuvc_torch.models.layers import lecun_normal_
+from tpuvc_torch.ops import precision
 
 
 @functools.lru_cache(maxsize=64)
@@ -83,6 +83,6 @@ class CheckerboardConv(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight * self.mask,
-                     padding=self.kernel // 2)
+        y = precision.conv(x.permute(0, 3, 1, 2), self.weight * self.mask,
+                           padding=self.kernel // 2)
         return y.permute(0, 2, 3, 1) + self.bias

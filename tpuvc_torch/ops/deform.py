@@ -13,7 +13,10 @@ the compute-dtype policy. On a CPU tensor it runs :func:`deform_plain`, the
 PyTorch transcription of tpuvc's tap-unrolled formulation
 ``_deform_taps(force_xla=True)``. Any other device raises: nothing falls back
 to the plain version quietly. Gradients on CUDA go through autograd of the
-plain version, as tpuvc's custom VJP goes through its XLA formulation.
+plain version, as tpuvc's custom VJP goes through its XLA formulation; it
+samples whole pixels by index, so under PyTorch's deterministic algorithms
+(training) its backward adds each pixel's samples in a fixed order and
+gives the same bits every run.
 
 ``y0`` (every entry point's last argument, 0 by default) computes only
 output rows ``[y0, y0 + H_out)``, ``H_out`` being the offsets' height: the
@@ -53,14 +56,16 @@ def _sample_zero_pad(img: torch.Tensor, flow: torch.Tensor, y0: int = 0) -> torc
     y0 = torch.floor(y)
     fx = x - x0
     fy = y - y0
-    flat = img.reshape(B, H * W, C)
+    flat = img.reshape(B * H * W, C)
+    base = torch.arange(B, device=img.device).view(B, 1, 1) * (H * W)
 
     def corner(yi, xi, w):
         valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
         xc = torch.clamp(xi, 0, W - 1).long()
         yc = torch.clamp(yi, 0, H - 1).long()
-        idx = (yc * W + xc).reshape(B, Ho * W, 1).expand(B, Ho * W, C)
-        v = torch.gather(flat, 1, idx).reshape(B, Ho, W, C)
+        # whole pixels by index: under deterministic algorithms the
+        # gradient's index_add sums each pixel's samples in a fixed order
+        v = flat.index_select(0, (base + yc * W + xc).reshape(-1)).reshape(B, Ho, W, C)
         return v * (w * valid)[..., None]
 
     return (

@@ -13,7 +13,10 @@ On a CUDA tensor ``warp`` launches the hand-written kernel
 Pallas band kernel. On a CPU tensor it runs :func:`warp_plain`, the PyTorch
 transcription of tpuvc's XLA formulation (``warp_pallas._warp_xla``). Any
 other device raises: nothing falls back to the plain version quietly.
-Gradients on CUDA go through autograd of the plain version.
+Gradients on CUDA go through autograd of the plain version, which samples
+whole pixels by index: under PyTorch's deterministic algorithms (training,
+``ops.precision.deterministic_training``) its backward adds each pixel's
+samples in a fixed order, so it gives the same bits every run.
 
 ``y0`` (every entry point's last argument, 0 by default) warps only rows
 ``[y0, y0 + H_out)`` of the output, ``H_out`` being the flow's height: the
@@ -67,11 +70,13 @@ def _warp_plain_core(img, flow, sx: float, sy: float, y0: int = 0) -> torch.Tens
     y0i = y0.long()
     x1i = torch.clamp(x0i + 1, max=W - 1)
     y1i = torch.clamp(y0i + 1, max=H - 1)
-    flat = img.reshape(B, H * W, C)
+    flat = img.reshape(B * H * W, C)
+    base = torch.arange(B, device=img.device).view(B, 1, 1) * (H * W)
 
     def gather(yi, xi):
-        idx = (yi * W + xi).reshape(B, Ho * W, 1).expand(B, Ho * W, C)
-        return torch.gather(flat, 1, idx).reshape(B, Ho, W, C)
+        # whole pixels by index: under deterministic algorithms the
+        # gradient's index_add sums each pixel's samples in a fixed order
+        return flat.index_select(0, (base + yi * W + xi).reshape(-1)).reshape(B, Ho, W, C)
 
     w00 = ((1.0 - fy) * (1.0 - fx))[..., None]
     w01 = ((1.0 - fy) * fx)[..., None]

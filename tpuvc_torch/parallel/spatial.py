@@ -79,7 +79,7 @@ from tpuvc_torch.models.lhbdc import LHBDC
 from tpuvc_torch.models.ms_feature import _ConvRBB
 from tpuvc_torch.models.spynet import preprocess
 from tpuvc_torch.models.unet import _avgpool2, _lrelu, _maxpool2
-from tpuvc_torch.ops import checkerboard
+from tpuvc_torch.ops import checkerboard, precision
 from tpuvc_torch.ops import warp as warp_ops
 from tpuvc_torch.ops.checkerboard import CheckerboardConv
 from tpuvc_torch.ops.pad import _pad_index
@@ -321,7 +321,7 @@ class Spatial:
             weight, bias, stride = conv.weight * conv.mask, conv.bias, 1
 
             def fn(win, pad):
-                y = F.conv2d(win.permute(0, 3, 1, 2), weight, padding=pad)
+                y = precision.conv(win.permute(0, 3, 1, 2), weight, padding=pad)
                 return y.permute(0, 2, 3, 1) + bias
         else:
             weight, bias, stride = conv.weight, conv.bias, conv.stride
