@@ -1,0 +1,7 @@
+"""Share of the eval calls' wall time in which no device operation ran (%)."""
+
+from harness.readers import idle_pct
+
+
+def read(run):
+    return idle_pct(run, "eval")

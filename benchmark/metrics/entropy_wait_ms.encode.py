@@ -1,0 +1,8 @@
+"""Host ms per B-frame that the encoder spends blocked on the host
+entropy coder's results (ms/frame)."""
+
+from harness.readers import entropy_wait_ms
+
+
+def read(run):
+    return entropy_wait_ms(run, "encode")
