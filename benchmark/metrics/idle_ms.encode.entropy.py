@@ -1,0 +1,9 @@
+"""Device-idle ms per frame of the encode calls that fell inside the program's
+entropy spans (symbol fetches and uploads, rANS, waits on the coders' workers)
+on the call's thread (ms/frame)."""
+
+from harness.spans import idle_ms
+
+
+def read(run):
+    return idle_ms(run, "encode", "entropy")

@@ -28,6 +28,8 @@ import argparse
 import os
 import time
 
+from tpuvc_torch import obs
+
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__)
@@ -54,6 +56,9 @@ def build_parser():
     p.add_argument("--dist_backend", default=None,
                    help="torch.distributed backend for a stream coded over a "
                         "mesh (default nccl on cuda, gloo on the CPU)")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="write the run's spans and counters (tpuvc_torch.obs) "
+                        "to PATH as JSON")
     return p
 
 
@@ -96,6 +101,7 @@ def _regroup(seq, level_of) -> list:
     return groups
 
 
+@obs.spanned("decode")
 def _decode_level_batched(seq, coder, intra_coder, frame_cls) -> dict:
     """Decode a mode=1 (level-batched) stream through the encoder's batch
     shapes; shape parity keeps the re-estimated flow, and with it the rANS
@@ -165,12 +171,13 @@ def _decode_level_batched(seq, coder, intra_coder, frame_cls) -> dict:
 
     for j, (typ, recs) in enumerate(groups):
         if typ == "I":
-            flush_i(recs)
-        elif pipelined:
+            with obs.span("intra", batch=len(recs)):
+                flush_i(recs)
+            continue
+        if pipelined:
             submit_ahead(j)
-            flush(recs, pending.pop(j))
-        else:
-            flush(recs)
+        with obs.span("inter", level=level_of[recs[0][0] % gop], batch=len(recs)):
+            flush(recs, pending.pop(j) if pipelined else None)
     return decoded_host
 
 
@@ -186,21 +193,22 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     set_deterministic(device)
-    with open(args.bin, "rb") as f:
-        seq = VSequenceBitstream.deserialize(f.read())
-    args.family = seq.family
-    # The encoder sharded its level batches over seq.mesh processes: replay
-    # the same split (the coders' set_shard), or the re-derived entropy
-    # parameters would come from other batch shapes.
-    if seq.mesh > 1 and seq.mode != 1:
-        raise SystemExit(f"a mesh={seq.mesh} stream must be level-batched (mode 1), "
-                         f"this one has mode {seq.mode}")
-    mesh = join_mesh(seq.mesh, args.dist_backend, args.device)
-    try:
-        return _decode(args, seq, device if mesh is None else mesh.device, mesh)
-    finally:
-        if mesh is not None:
-            mesh.close()
+    with obs.tracing(args.trace):
+        with open(args.bin, "rb") as f:
+            seq = VSequenceBitstream.deserialize(f.read())
+        args.family = seq.family
+        # The encoder sharded its level batches over seq.mesh processes:
+        # replay the same split (the coders' set_shard), or the re-derived
+        # entropy parameters would come from other batch shapes.
+        if seq.mesh > 1 and seq.mode != 1:
+            raise SystemExit(f"a mesh={seq.mesh} stream must be level-batched (mode 1), "
+                             f"this one has mode {seq.mode}")
+        mesh = join_mesh(seq.mesh, args.dist_backend, args.device)
+        try:
+            return _decode(args, seq, device if mesh is None else mesh.device, mesh)
+        finally:
+            if mesh is not None:
+                mesh.close()
 
 
 def _decode(args, seq, device, mesh) -> dict:

@@ -33,6 +33,8 @@ from __future__ import annotations
 import argparse
 import time
 
+from tpuvc_torch import obs
+
 
 def build_parser():
     from tpuvc_torch.cli.encode_b import FAMILIES
@@ -97,6 +99,9 @@ def build_parser():
                    help="comma ints summing to intra_M (default ELIC groups)")
     p.add_argument("--device", default="cuda",
                    help="torch device to code on (default cuda)")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="write the run's spans and counters (tpuvc_torch.obs) "
+                        "to PATH as JSON")
     return p
 
 
@@ -174,7 +179,8 @@ def finish(recons: dict, device, h: int, w: int) -> dict:
     import torch
 
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with obs.span("host_copy"):
+            torch.cuda.synchronize(device)
     return {i: recons[i][:h, :w] for i in sorted(recons)}
 
 
@@ -206,6 +212,7 @@ def code_b_frame(coder, family, args, ref1, ref2, xcur, idx, o1, o2):
     )
 
 
+@obs.spanned("encode")
 def _encode_level_batched(args, frames, coder, intra_coder, device, mesh=None) -> dict:
     """Level-batched encoding: frames of one hierarchy level (across the
     window's GOPs) share every device forward. The decoder replays the same
@@ -243,8 +250,9 @@ def _encode_level_batched(args, frames, coder, intra_coder, device, mesh=None) -
         """Code a window's fresh anchors in one batched forward (the decoder
         groups the consecutive I records and replays the same batch)."""
         xs = torch.cat([device_frame(frames.u8(b), device) for b in fresh])
-        out = intra_coder.compress_batch_async(xs)
-        dec = torch.clamp(intra_coder.synthesize(out["y_hat"]), 0.0, 1.0)
+        with obs.span("intra", batch=len(fresh)):
+            out = intra_coder.compress_batch_async(xs)
+            dec = torch.clamp(intra_coder.synthesize(out["y_hat"]), 0.0, 1.0)
         for j, (b, (y_strs, z_str)) in enumerate(zip(fresh, out["strings_resolve"]())):
             anchors[b] = dec[j : j + 1]
             recons[b] = to_host(dec[j])
@@ -284,7 +292,7 @@ def _encode_level_batched(args, frames, coder, intra_coder, device, mesh=None) -
         # rANS error surfaces within a level of its cause and resolved
         # closures release their symbol arrays.
         pending_prev = []  # the previous level's (chunk, resolve)
-        for level_frames in table.frames_by_level():
+        for level, level_frames in enumerate(table.frames_by_level()):
             pending_cur = []
             work = [(g0, f) for f in level_frames for g0 in starts]
             for c0 in range(0, len(work), args.max_batch):
@@ -293,8 +301,9 @@ def _encode_level_batched(args, frames, coder, intra_coder, device, mesh=None) -
                 xb = torch.cat([decoded[g0 + a] for (g0, _), (a, _) in zip(chunk, refs)])
                 xa = torch.cat([decoded[g0 + b] for (g0, _), (_, b) in zip(chunk, refs)])
                 xc = torch.cat([device_frame(frames.u8(g0 + f), device) for g0, f in chunk])
-                resolve, x_hat = encode_chunk(chunk, refs, xb, xa, xc)
-                x_hat = torch.clamp(x_hat, 0.0, 1.0)
+                with obs.span("inter", level=level, batch=len(chunk)):
+                    resolve, x_hat = encode_chunk(chunk, refs, xb, xa, xc)
+                    x_hat = torch.clamp(x_hat, 0.0, 1.0)
                 for i, (g0, f) in enumerate(chunk):
                     decoded[g0 + f] = x_hat[i : i + 1]
                     recons[g0 + f] = to_host(x_hat[i])
@@ -337,7 +346,12 @@ def main(argv=None):
     """Encode; returns the reconstructions, {display index: (H, W, 3)
     float32 CPU tensor}, equal to what decode_v gives for the file."""
     args = build_parser().parse_args(argv)
+    with obs.tracing(args.trace):
+        return _encode(args)
 
+
+def _encode(args) -> dict:
+    """encode_v's body."""
     import torch
 
     from tpuvc_torch import resolve_device

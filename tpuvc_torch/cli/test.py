@@ -258,9 +258,20 @@ def main(argv=None):
     p.add_argument("--config", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device to evaluate on (default cuda)")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="write the eval's spans and counters (tpuvc_torch.obs) "
+                        "to PATH as JSON")
     p.add_argument("overrides", nargs="*")
     args = p.parse_args(argv)
 
+    from tpuvc_torch import obs
+
+    with obs.tracing(args.trace):
+        return _evaluate(args)
+
+
+def _evaluate(args) -> dict:
+    """The eval CLI's body."""
     from tpuvc_torch import resolve_device
     from tpuvc_torch.config import TestConfig, apply_overrides, load_yaml
     from tpuvc_torch.eval.infographic import TestInfographic

@@ -22,6 +22,8 @@ from __future__ import annotations
 import struct
 from dataclasses import dataclass, field
 
+from tpuvc_torch import obs
+
 
 @dataclass
 class BFrameBitstream:
@@ -42,6 +44,7 @@ class BFrameBitstream:
             self.res_y
         ) + len(self.res_z)
 
+    @obs.spanned("container")
     def serialize(self) -> bytes:
         head = struct.pack(
             self.HEADER,
@@ -57,6 +60,7 @@ class BFrameBitstream:
         return head + self.mv_y + self.mv_z + self.res_y + self.res_z
 
     @classmethod
+    @obs.spanned("container")
     def deserialize(cls, blob: bytes) -> "BFrameBitstream":
         rate_id, mh, mw, n_mvy, n_mvz, rh, rw, n_resy = struct.unpack(
             cls.HEADER, blob[: cls.HEADER_BYTES]
@@ -112,6 +116,7 @@ class VFrameBitstream:
             + sum(len(s) for s in self.streams)
         )
 
+    @obs.spanned("container")
     def serialize(self) -> bytes:
         head = struct.pack(
             self.HEADER,
@@ -127,6 +132,7 @@ class VFrameBitstream:
         return head + lens + b"".join(self.streams)
 
     @classmethod
+    @obs.spanned("container")
     def deserialize(cls, blob: bytes) -> "VFrameBitstream":
         hsize = struct.calcsize(cls.HEADER)
         s_milli, dr, s1, s2, zh, zw, n = struct.unpack(cls.HEADER, blob[:hsize])
@@ -211,6 +217,7 @@ class IFrameBitstream:
 
     HEADER = "<HHB"
 
+    @obs.spanned("container")
     def serialize(self) -> bytes:
         head = struct.pack(
             self.HEADER, self.z_shape[0], self.z_shape[1], len(self.streams)
@@ -221,6 +228,7 @@ class IFrameBitstream:
         return head + lens + b"".join(self.streams)
 
     @classmethod
+    @obs.spanned("container")
     def deserialize(cls, blob: bytes) -> "IFrameBitstream":
         hsize = struct.calcsize(cls.HEADER)
         zh, zw, n = struct.unpack(cls.HEADER, blob[:hsize])
@@ -306,6 +314,7 @@ class VSequenceBitstream:
             7 + len(b) for _, _, b in self.frames
         )
 
+    @obs.spanned("container")
     def serialize(self) -> bytes:
         if not 1 <= max(1, self.mesh) <= 255:
             raise ValueError(
@@ -328,6 +337,7 @@ class VSequenceBitstream:
         return b"".join(out)
 
     @classmethod
+    @obs.spanned("container")
     def deserialize(cls, blob: bytes) -> "VSequenceBitstream":
         if blob[:4] == b"TPV2":  # pre-mesh header, mesh=1
             hsize = struct.calcsize(cls.HEADER_V2)

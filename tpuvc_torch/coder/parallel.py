@@ -1,4 +1,5 @@
-"""Threaded host coding of independent per-frame rANS streams.
+"""Threaded host coding of independent per-frame rANS streams, and the
+coders' symbol transfers between device and host.
 
 The level-batched coders produce one independent stream set per frame; the
 ctypes rANS calls release the GIL, so a thread pool codes them concurrently.
@@ -12,6 +13,9 @@ import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+import torch
+
+from tpuvc_torch import obs
 from tpuvc_torch.ops import precision
 
 _POOL: ThreadPoolExecutor | None = None
@@ -60,7 +64,7 @@ class CtxPool(ThreadPoolExecutor):
 
 
 def _holding(fn, *args, **kwargs):
-    with precision._PLANS.shared():
+    with obs.span("task"), precision._PLANS.shared():
         return fn(*args, **kwargs)
 
 
@@ -74,7 +78,7 @@ class _ParkingFuture:
         self._fut = fut
 
     def result(self, timeout=None):
-        with precision._PLANS.parked():
+        with obs.span("entropy.wait"), precision._PLANS.parked():
             return self._fut.result(timeout)
 
     def exception(self, timeout=None):
@@ -83,6 +87,22 @@ class _ParkingFuture:
 
     def __getattr__(self, name):
         return getattr(self._fut, name)
+
+
+def fetch(t):
+    """A device tensor of symbols, indexes or z, as a host array."""
+    with obs.span("entropy.fetch"):
+        a = t.cpu().numpy()
+    obs.count("entropy.fetch_bytes", a.nbytes)
+    return a
+
+
+def upload(a, device):
+    """Decoded host symbols, as a tensor on ``device``."""
+    with obs.span("entropy.upload"):
+        t = torch.from_numpy(a).to(device)
+    obs.count("entropy.upload_bytes", a.nbytes)
+    return t
 
 
 def host_pool() -> ThreadPoolExecutor:

@@ -13,6 +13,7 @@ import threading
 
 import numpy as np
 
+from tpuvc_torch import obs
 from tpuvc_torch.coder.build import lib_path
 
 _lib = None
@@ -73,6 +74,7 @@ def _i32p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 
 
+@obs.spanned("entropy.rans")
 def encode_with_indexes(symbols, indexes, cdfs, cdf_lengths, offsets) -> bytes:
     """Encode int symbols to a byte stream.
 
@@ -106,9 +108,11 @@ def encode_with_indexes(symbols, indexes, cdfs, cdf_lengths, offsets) -> bytes:
             continue
         if nbytes < 0:
             raise ValueError(f"rANS encode failed (code {nbytes})")
+        obs.count("entropy.rans_bytes", nbytes)
         return bytes(out[:nbytes])
 
 
+@obs.spanned("entropy.rans")
 def decode_with_indexes(stream: bytes, indexes, cdfs, cdf_lengths, offsets) -> np.ndarray:
     """Decode N symbols (N = indexes.size) from a byte stream."""
     indexes = _as_i32(indexes).ravel()
@@ -127,4 +131,5 @@ def decode_with_indexes(stream: bytes, indexes, cdfs, cdf_lengths, offsets) -> n
     )
     if rc != 0:
         raise ValueError(f"rANS decode failed (code {rc})")
+    obs.count("entropy.rans_bytes", buf.size)
     return out

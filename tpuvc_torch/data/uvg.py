@@ -15,6 +15,7 @@ import os
 import numpy as np
 import torch
 
+from tpuvc_torch import obs
 from tpuvc_torch.data.frames import load_png, to_float
 
 
@@ -33,7 +34,8 @@ def _pad_np(img: np.ndarray, multiple: int) -> np.ndarray:
 def device_frame(u8: np.ndarray, device) -> torch.Tensor:
     """Upload a uint8 frame and convert it to float32 in [0, 1] on
     ``device`` (the values equal ``to_float`` on the host)."""
-    return torch.from_numpy(np.ascontiguousarray(u8)).to(device).float() / 255.0
+    with obs.span("frames.upload"):
+        return torch.from_numpy(np.ascontiguousarray(u8)).to(device).float() / 255.0
 
 
 class SequenceFrames:

@@ -22,6 +22,7 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
+from tpuvc_torch import obs
 from tpuvc_torch.eval.infographic import TestInfographic
 from tpuvc_torch.eval.metrics import msssim, psnr_uint8
 from tpuvc_torch.gop.dpb import DecodedPictureBuffer
@@ -187,6 +188,7 @@ def summarize(psnr_list, size_list, crop_hw):
     }
 
 
+@obs.spanned("eval")
 def eval_sequence_batched(
     frames,
     n_frames: int,
@@ -256,7 +258,9 @@ def eval_sequence_batched(
             if b == w0 and prev_anchor is not None:
                 anchors[b] = prev_anchor
                 continue
-            dec, s = intra_fn(frames[b])
+            x = frames[b]
+            with obs.span("intra", batch=1):
+                dec, s = intra_fn(x)
             dec = torch.clamp(dec, 0.0, 1.0)
             anchors[b] = dec
             record(b, "I", dec, s)

@@ -16,6 +16,7 @@ from collections.abc import Callable
 
 import torch
 
+from tpuvc_torch import obs
 from tpuvc_torch.gop.order import GopTable
 
 
@@ -60,7 +61,7 @@ def code_gops_batched(
     """
     decoded = dict(i_frames)
     pending: list = []
-    for level_frames in table.frames_by_level():
+    for level, level_frames in enumerate(table.frames_by_level()):
         work = [(g0, f) for f in level_frames for g0 in gop_starts]
         step = len(work) if max_batch is None else max_batch
         for c0 in range(0, len(work), step):
@@ -69,9 +70,10 @@ def code_gops_batched(
             ref1 = torch.cat([decoded[g0 + a] for (g0, _), (a, _) in zip(chunk, refs)])
             ref2 = torch.cat([decoded[g0 + b] for (g0, _), (_, b) in zip(chunk, refs)])
             xcur = torch.cat([frames[g0 + f] for g0, f in chunk])
-            x_hat, level_sizes = inter_fn_batched(
-                ref1, ref2, xcur, tuple(f for _, f in chunk), tuple(refs),
-            )
+            with obs.span("inter", level=level, batch=len(chunk)):
+                x_hat, level_sizes = inter_fn_batched(
+                    ref1, ref2, xcur, tuple(f for _, f in chunk), tuple(refs),
+                )
             x_hat = torch.clamp(x_hat, 0.0, 1.0)
             for i, (g0, f) in enumerate(chunk):
                 decoded[g0 + f] = x_hat[i : i + 1]

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpuvc_torch import obs
 from tpuvc_torch.entropy.bottleneck import FactorizedBottleneck, FactorizedTables
 from tpuvc_torch.entropy.gaussian import GaussianConditional
 from tpuvc_torch.entropy.quant import quantize, ste_round
@@ -194,6 +195,7 @@ class CondELIC(nn.Module):
             interp(self.InverseGain),
         )
 
+    @obs.stage
     def analysis(self, c1, c2, c3, s, x_pixel=None):
         """Conditional analysis -> gained (y, z)."""
         gain, hypergain, _, _ = self.interpolate_gain(s)
@@ -208,6 +210,7 @@ class CondELIC(nn.Module):
         z = self.h_a3(F.relu(self.h_a2(F.relu(self.h_a1(y)))))
         return y, z * hypergain
 
+    @obs.stage
     def hyper_params(self, z_hat, temporal_cond, s):
         """h_s on the inverse-gained z_hat, fused with the temporal condition."""
         _, _, invhypergain, _ = self.interpolate_gain(s)
@@ -218,6 +221,7 @@ class CondELIC(nn.Module):
             x = blk(x)
         return self.prior_fusion_out(x)
 
+    @obs.stage
     def group_params(self, i: int, hyper_params, prev_groups_hat, y_anchor_hat):
         ctx = keep_non_anchor(self.context_prediction_models[i](y_anchor_hat))
         if i == 0:
@@ -228,6 +232,7 @@ class CondELIC(nn.Module):
         scales, means = torch.chunk(self.entropy_parameters[i](inp), 2, dim=-1)
         return scales, means
 
+    @obs.stage
     def synthesis(self, y_hat, cond1, cond2, cond3, s):
         """Interleaved synthesis -> per-scale head outputs (out1, out2, out3)."""
         _, _, _, invgain = self.interpolate_gain(s)
@@ -367,7 +372,7 @@ class GroupCoder:
         and rANS run on a worker and the returned strings are futures.
         Returns (group y_hat, [anchor, non-anchor] strings).
         """
-        from tpuvc_torch.coder.parallel import async_pool, parallel_map
+        from tpuvc_torch.coder.parallel import async_pool, fetch, parallel_map, upload
 
         b, h, w = hyper.shape[0], hyper.shape[1], hyper.shape[2]
         gsize = self.module.groups[i]
@@ -395,12 +400,12 @@ class GroupCoder:
                 sym_dev = quantize(curr_y[:, pi, pj], "symbols16", means=means)
 
                 def host_job():
-                    return enc(sym_dev.cpu().numpy(), idx_dev.cpu().numpy())
+                    return enc(fetch(sym_dev), fetch(idx_dev))
 
                 out = async_pool().submit(host_job) if submit else host_job()
                 return sym_dev.float() + means, out
-            sym = dec(stream, idx_dev.cpu().numpy()).astype(np.int16)
-            return torch.from_numpy(sym).to(self.device).float() + means, stream
+            sym = dec(stream, fetch(idx_dev)).astype(np.int16)
+            return upload(sym, self.device).float() + means, stream
 
         # Each phase's entropy parameters are computed (in stream order)
         # before its values are written into y_hat.
@@ -421,40 +426,42 @@ class GroupCoder:
     def _code_z(self, z, z_string=None, z_shape=None, batch=1):
         """Encode z (one stream for the batch), or decode it from
         ``z_string``. Returns (z_hat, z_string, (zh, zw))."""
+        from tpuvc_torch.coder.parallel import fetch, upload
+
         if z_string is None:
-            z_sym = quantize(z, "symbols", means=self.z_medians).cpu().numpy()
+            z_sym = fetch(quantize(z, "symbols", means=self.z_medians))
             z_string = self._enc_z(z_sym)
             shape = tuple(z.shape[1:3])
         else:
             zh, zw = z_shape
             z_sym = self._dec_z(z_string, (batch, zh, zw, self.module.N))
             shape = tuple(z_shape)
-        z_hat = torch.from_numpy(z_sym.astype(np.float32)).to(self.device) + self.z_medians
+        z_hat = upload(z_sym.astype(np.float32), self.device) + self.z_medians
         return z_hat, z_string, shape
 
     def _code_z_per_sample(self, z):
         """One z stream per sample, coded on a worker: -> (z_hat, future of
         the per-sample strings). z_hat continues from the device's own
         symbols, which equal the decoder's uploads."""
-        from tpuvc_torch.coder.parallel import async_pool, parallel_map
+        from tpuvc_torch.coder.parallel import async_pool, fetch, parallel_map
 
         z_sym_dev = quantize(z, "symbols16", means=self.z_medians)
 
         def z_job():
-            z_sym = z_sym_dev.cpu().numpy()
+            z_sym = fetch(z_sym_dev)
             return parallel_map(lambda j: self._enc_z(z_sym[j]), range(len(z_sym)))
 
         return z_sym_dev.float() + self.z_medians, async_pool().submit(z_job)
 
     def _dec_z_per_sample(self, z_strings, z_shape):
         """Inverse of _code_z_per_sample: the batch's z_hat."""
-        from tpuvc_torch.coder.parallel import parallel_map
+        from tpuvc_torch.coder.parallel import parallel_map, upload
 
         zh, zw = z_shape
         z_sym = np.stack(parallel_map(
             lambda zs: self._dec_z(zs, (zh, zw, self.module.N)), z_strings
         ))
-        return torch.from_numpy(z_sym.astype(np.float32)).to(self.device) + self.z_medians
+        return upload(z_sym.astype(np.float32), self.device) + self.z_medians
 
 
 class CondELICCoder(GroupCoder):

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpuvc_torch import resolve_device
+from tpuvc_torch import obs, resolve_device
 from tpuvc_torch.coder.container import VFrameBitstream
 from tpuvc_torch.entropy.emath import likelihood_to_bits, per_sample_bits
 from tpuvc_torch.models.cond_elic import CondELICCoder, OffsetELIC, ResELIC
@@ -88,6 +88,7 @@ class FlowGuidedB(nn.Module):
         self.reconstructor = Reconstructor(channels=fc)
         if generator is not None:
             init_weights(self, generator)
+        obs.name_stages(self)
 
     def estimate_flow(self, xref1, xref2, down_ratio: int):
         """FlowNET at /(2 * down_ratio) -> 4-channel flow pair at /2 of the
@@ -103,6 +104,7 @@ class FlowGuidedB(nn.Module):
             flow = bilinear_resize(flow, h * down_ratio, w * down_ratio) * down_ratio
         return flow
 
+    @obs.stage
     def warped_refs_at_layer(self, fref1, fref2, flow, scale1, scale2):
         """Scale and warp one pyramid level; return the halved flow for the
         next."""

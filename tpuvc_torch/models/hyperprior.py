@@ -16,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpuvc_torch import obs
 from tpuvc_torch.entropy.bottleneck import FactorizedBottleneck, FactorizedTables
 from tpuvc_torch.entropy.gaussian import GaussianConditional
 from tpuvc_torch.entropy.quant import quantize
@@ -100,14 +101,17 @@ class MeanScaleHyperprior(nn.Module):
             x = layer(x)
         return x
 
+    @obs.stage
     def analysis(self, x):
         y = self.g_a(x)
         return y, self.h_a(y)
 
+    @obs.stage
     def entropy_params(self, z_hat):
         scales, means = torch.chunk(self.h_s(z_hat), 2, dim=-1)
         return scales, means
 
+    @obs.stage
     def synthesis(self, y_hat):
         return self.g_s(y_hat)
 
@@ -226,10 +230,12 @@ class HyperpriorCoder:
     def compress_from(self, y, z_sym_dev, z_hat, *rate) -> dict:
         """Host half of compress, from a precomputed (y, z symbols, z_hat)
         triple; the whole batch goes into one stream pair."""
-        z_string = self._encode_z(z_sym_dev.cpu().numpy())
+        from tpuvc_torch.coder.parallel import fetch
+
+        z_string = self._encode_z(fetch(z_sym_dev))
         means, y_idx_dev = self.params_idx(z_hat, *rate)
         y_sym_dev = quantize(y, "symbols16", means=means)
-        y_string = self._encode_y(y_sym_dev.cpu().numpy(), y_idx_dev.cpu().numpy())
+        y_string = self._encode_y(fetch(y_sym_dev), fetch(y_idx_dev))
         return {
             "strings": [y_string, z_string],
             "shape": tuple(z_sym_dev.shape[1:3]),
@@ -249,15 +255,13 @@ class HyperpriorCoder:
         at once, so the caller's next device work overlaps the host coding.
         Returns {"strings_future" -> [(y_str, z_str)] * B, "shape", "y_hat"}.
         """
-        from tpuvc_torch.coder.parallel import async_pool, parallel_map
+        from tpuvc_torch.coder.parallel import async_pool, fetch, parallel_map
 
         means, y_idx_dev = self.params_idx(z_hat, *rate)
         y_sym_dev = quantize(y, "symbols16", means=means)
 
         def host_phase():
-            z_sym = z_sym_dev.cpu().numpy()
-            y_idx = y_idx_dev.cpu().numpy()
-            y_sym = y_sym_dev.cpu().numpy()
+            z_sym, y_idx, y_sym = fetch(z_sym_dev), fetch(y_idx_dev), fetch(y_sym_dev)
             return parallel_map(
                 lambda b: (self._encode_y(y_sym[b], y_idx[b]),
                            self._encode_z(z_sym[b])),
@@ -281,7 +285,7 @@ class HyperpriorCoder:
         """Batched decompress of per-sample (y_str, z_str) pairs: host rANS
         per sample, device transforms once at batch B (compress_batch's
         shapes). Returns y_hat (B, ...)."""
-        from tpuvc_torch.coder.parallel import parallel_map
+        from tpuvc_torch.coder.parallel import fetch, parallel_map, upload
 
         zh, zw = shape
         zc = self.module.N
@@ -291,16 +295,16 @@ class HyperpriorCoder:
                 strings,
             )
         )
-        z_hat = torch.from_numpy(z_sym).to(self.device).float() + self.z_medians
+        z_hat = upload(z_sym, self.device).float() + self.z_medians
         means, y_idx_dev = self.params_idx(z_hat, *rate)
-        y_idx = y_idx_dev.cpu().numpy()
+        y_idx = fetch(y_idx_dev)
         y_sym = np.stack(
             parallel_map(
                 lambda bs: self._decode_y(bs[1][0], y_idx[bs[0]]).astype(np.int16),
                 enumerate(strings),
             )
         )
-        return torch.from_numpy(y_sym).to(self.device).float() + means
+        return upload(y_sym, self.device).float() + means
 
     def decompress_batch_async(self, strings: list, shape, *rate):
         """decompress_batch on a worker thread -> Future[y_hat].
@@ -316,11 +320,13 @@ class HyperpriorCoder:
     @torch.no_grad()
     def decompress(self, strings, shape, *rate, batch: int = 1) -> torch.Tensor:
         """Inverse of compress: one stream pair for the whole batch."""
+        from tpuvc_torch.coder.parallel import fetch, upload
+
         y_string, z_string = strings
         zh, zw = shape
         z_sym = self._decode_z(z_string, (batch, zh, zw, self.module.N))
-        z_hat = torch.from_numpy(z_sym).to(self.device).float() + self.z_medians
+        z_hat = upload(z_sym, self.device).float() + self.z_medians
         means, y_idx_dev = self.params_idx(z_hat, *rate)
-        y_sym = self._decode_y(y_string, y_idx_dev.cpu().numpy())
-        y_hat = torch.from_numpy(y_sym).to(self.device).float() + means
+        y_sym = self._decode_y(y_string, fetch(y_idx_dev))
+        y_hat = upload(y_sym, self.device).float() + means
         return self.synthesize(y_hat, *rate)

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tpuvc_torch import resolve_device
+from tpuvc_torch import obs, resolve_device
 from tpuvc_torch.coder.container import BFrameBitstream
 from tpuvc_torch.entropy.emath import likelihood_to_bits, per_sample_bits
 from tpuvc_torch.models.hyperprior import (
@@ -51,6 +51,7 @@ class LHBDC(nn.Module):
         self.masknet = MaskUNet()
         if generator is not None:
             init_weights(self, generator)
+        obs.name_stages(self)
 
     def _batched_flows(self, firsts, seconds):
         """Several flow estimations as ONE batched SPyNet pass."""
@@ -91,6 +92,7 @@ class LHBDC(nn.Module):
             flows.append(g)
         return (*flows, size)
 
+    @obs.stage
     def motion_compensate(self, x_before, x_after, flow_cb_hat, flow_ca_hat, size):
         """Crop + x4 upsample decoded flows, warp both refs, mask-blend."""
         flow_cb_hat = upsample_flow(unpad(flow_cb_hat, size), 4)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from tpuvc_torch import obs
 from tpuvc_torch.models.layers import Conv, Deconv, ResidualBottleneckBlock, SubpelConv
 
 
@@ -54,6 +55,7 @@ class MSFeature(nn.Module):
         c = (in_channels, *channels)
         _named(self, "_ConvRBB", [_ConvRBB(c[i], c[i + 1]) for i in range(3)])
 
+    @obs.stage
     def forward(self, x):
         l1 = self._ConvRBB_0(x)
         l2 = self._ConvRBB_1(l1)
@@ -79,6 +81,7 @@ class FlowNET(nn.Module):
                [SubpelConv(f, o, r=2, zero_init=(o == 4)) for f, o in ups])
         _named(self, "Conv", [Conv(2 * o, o, kernel=1) for _, o in ups[:3]])
 
+    @obs.stage
     def forward(self, x):
         s0 = self._ConvRBB_0(x)
         s1 = self._ConvRBB_1(s0)
@@ -105,6 +108,7 @@ class TemporalEnc(nn.Module):
         self._ConvRBB_1 = _ConvRBB(N + c2, N, kernel=5)
         self._ConvRBB_2 = _ConvRBB(N + c3, M, kernel=5)
 
+    @obs.stage
     def forward(self, c1, c2, c3):
         y = self._ConvRBB_0(c1)
         y = self._ConvRBB_1(torch.cat([y, c2], dim=-1))
@@ -133,6 +137,7 @@ class Reconstructor(nn.Module):
             x = getattr(self, f"ResidualBottleneckBlock_{j}")(x)
         return getattr(self, f"{self.UP}_{i}")(x)
 
+    @obs.stage
     def forward(self, x1, x2, x3):
         l3 = self._stage(x3, 0)
         l2 = self._stage(self.Conv_0(torch.cat([x2, l3], dim=-1)), 1)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from tpuvc_torch import obs
 from tpuvc_torch.ops.deform import DeformConv
 
 DEFORM_GROUPS = 8  # per reference; the fusion uses 2 * 8
@@ -41,6 +42,7 @@ class OffsetDiversity(nn.Module):
         offset = offset + flow.flip(-1).repeat(1, 1, 1, n_taps)
         return offset, torch.sigmoid(mask)
 
+    @obs.stage
     def forward(self, x1, head1, flow1, x2, head2, flow2):
         off1, m1 = self._prep(head1, flow1)
         off2, m2 = self._prep(head2, flow2)

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpuvc_torch import obs
 from tpuvc_torch.models.layers import Conv
 from tpuvc_torch.ops.resample import avg_pool2d, upsample2x_flow
 from tpuvc_torch.ops.warp import warp
@@ -75,6 +76,7 @@ class SPyNet(nn.Module):
         for i in range(num_levels):
             setattr(self, f"basic_{i}", BasicBlock())
 
+    @obs.stage
     def forward(self, first: torch.Tensor, second: torch.Tensor) -> torch.Tensor:
         assert first.shape == second.shape and first.shape[-1] == 3
         firsts = [preprocess(first)]

@@ -27,6 +27,8 @@ import threading
 
 import torch
 
+from tpuvc_torch import obs
+
 _COMPUTE_DTYPE: contextvars.ContextVar = contextvars.ContextVar(
     "tpuvc_torch_compute_dtype", default=None
 )
@@ -177,7 +179,7 @@ class _Plans:
     def checkpoint(self) -> None:
         """At a conv on a card: park while a window waits or is open."""
         if self.waiting or self.fixing:
-            with self.parked():
+            with obs.span("plan.park"), self.parked():
                 with self.cond:
                     while self.fixing:
                         self.cond.wait()
@@ -188,7 +190,7 @@ class _Plans:
         parked or has ended."""
         me = threading.current_thread()
         with self.parked():
-            with self.cond:
+            with obs.span("plan.wait"), self.cond:
                 self.waiting += 1
                 try:
                     while self.fixing or any(t is not me and t.is_alive() and self._running(t)
@@ -364,9 +366,10 @@ def _fix_plan(run, key, index: int, own: list):
     """``run()``, this thread's first call of the conv ``key`` on card
     ``index``, in :func:`conv`'s window; ``own``: the byte sizes of the
     call's output and of copies of its operands, set aside in the cache."""
-    with _PLANS.exclusive():
+    with _PLANS.exclusive(), obs.span("plan.fix"):
         if key in _PLANS.seen:
             return run()
+        obs.count("plan.windows")
         torch.cuda.empty_cache()
         staged = [torch.empty(n, dtype=torch.uint8, device=f"cuda:{index}") for n in own]
         del staged
