@@ -45,6 +45,28 @@ def test_rans_round_trip_and_tpuvc_streams(tables, n):
     np.testing.assert_array_equal(jrans.decode_with_indexes(stream, idx, *args), sym)
 
 
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_rans_batch_decode_equals_each_stream_decoded(tables, k):
+    """One native call decodes k streams, a thread each, into int16: the
+    per-stream decodes cast as the coders cast them (escapes wrap alike)."""
+    args = (tables.cdfs, tables.cdf_lengths, tables.offsets)
+    pairs = [_symbols(tables, 4000, seed=10 + j) for j in range(k)]
+    streams = [rans.encode_with_indexes(sym, idx, *args) for sym, idx in pairs]
+    indexes = np.stack([idx for _, idx in pairs]).astype(np.uint8)
+    out = np.zeros(indexes.shape, np.int16)
+    assert rans.decode_batch(streams, indexes, *args, out) is out
+    for j, (sym, idx) in enumerate(pairs):
+        np.testing.assert_array_equal(out[j], sym.astype(np.int16))
+        np.testing.assert_array_equal(
+            out[j], rans.decode_with_indexes(streams[j], idx, *args).astype(np.int16))
+    with pytest.raises(ValueError):
+        rans.decode_batch(streams, indexes.astype(np.int32), *args, out)
+    with pytest.raises(ValueError):
+        rans.decode_batch(streams, indexes, *args, out[:, :-1])
+    with pytest.raises(ValueError):
+        rans.decode_batch([b"\x00\x01"] + streams[1:], indexes, *args, out)
+
+
 def test_rans_rejects_bad_input(tables):
     args = (tables.cdfs, tables.cdf_lengths, tables.offsets)
     with pytest.raises(ValueError):

@@ -450,6 +450,71 @@ def test_flowguided_forward_card_matches_cpu(cuda):
     assert abs(float(out["size"]) / float(ref["size"]) - 1.0) <= 1e-5
 
 
+def test_host_step_reads_after_the_copy_and_waits_off_the_interpreter_lock(cuda):
+    """A stepwise decode's host round trip: the calling thread only issues
+    the index copy, the worker reads the indexes only once the copy, queued
+    behind ~0.25 s of device work, has landed, and its wait on the copy's
+    event leaves the interpreter to the calling thread."""
+    import time
+
+    from tpuvc_torch.coder import parallel
+
+    def total(a):
+        return int(a.astype(np.int64).sum())
+
+    x = torch.arange(1000, dtype=torch.int32, device=cuda)
+    try:
+        # kernels loaded, pinned memory and workers warm
+        parallel.run_steps(parallel.host_step(total, x * 2))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(5e8))
+        t0 = time.perf_counter()
+        step = parallel.host_step(total, x * 2)
+        fut = next(step)
+        issued = time.perf_counter() - t0
+        spins = 0
+        while not fut.done():
+            spins += 1
+        waited = time.perf_counter() - t0
+        with pytest.raises(StopIteration) as stop:
+            next(step)
+    finally:
+        parallel.shutdown()
+    assert stop.value.value == 999000
+    assert issued < 0.05 < waited, (issued, waited)
+    assert spins > 10000, (spins, waited)
+
+
+def test_flowguided_paired_decode_on_card_is_bit_exact(cuda):
+    """Two full-width 1088x1920 chunks of batch 2, their stepwise decodes
+    run in turn on one thread (each phase's index fetch ordered by its
+    event while the partner's kernels queue behind it), equal their decodes
+    one after the other and the encoder's reconstructions, in bfloat16."""
+    import chip_smoke
+    from tpuvc_torch.coder import parallel
+    from tpuvc_torch.coder.container import VFrameBitstream
+    from tpuvc_torch.models.flowguided_b import FlowGuidedBCoder
+    from tpuvc_torch.ops.precision import policy_from_name
+
+    coder = FlowGuidedBCoder(chip_smoke.v4_model(torch))
+    chunks = []
+    try:
+        with policy_from_name("bfloat16"):
+            for seed, scales in ((11, (0.5, -0.5)), (12, (0.25, -0.75))):
+                x1, xc, x2 = (t.to(cuda) for t in _frames((2, 1088, 1920, 3), seed=seed))
+                bits, x_hat = coder.encode_level_batch(x1, x2, xc, 1.0, *scales)
+                parsed = [VFrameBitstream.deserialize(b.serialize()) for b in bits]
+                chunks.append((x1, x2, parsed, x_hat))
+            one_by_one = [coder.decode_level_batch(x1, x2, p) for x1, x2, p, _ in chunks]
+            paired = parallel.run_steps(*(coder.decode_level_batch_steps(x1, x2, p)
+                                          for x1, x2, p, _ in chunks))
+    finally:
+        parallel.shutdown()
+    for (_, _, _, x_hat), single, both in zip(chunks, one_by_one, paired):
+        assert torch.equal(single, x_hat)
+        assert torch.equal(both, single)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flowguided_round_trip_on_card(cuda, dtype):
     """The v4 path at a small size on the card: level-batched encode, then

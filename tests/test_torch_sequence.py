@@ -17,6 +17,7 @@ reconstructions bit for bit (``torch.equal``). The low-delay CLIs code
 
 import contextlib
 import io
+import json
 import os
 import re
 import struct
@@ -190,6 +191,11 @@ CLI_CASES = {
                                  "2", "--max_batch", "4", "--compute_dtype", "bfloat16"],
     "flowguided_b_level_batched": ["--family", "flowguided_b", "--level_batched",
                                    "--s", "1.0"],
+    # 2-GOP windows at batch 1: two one-frame chunks at level 0 and four at
+    # level 1, which the decoder decodes two at a time
+    "flowguided_b_level_batched_paired": ["--family", "flowguided_b", "--level_batched",
+                                          "--window_gops", "2", "--max_batch", "1",
+                                          "--s", "1.0"],
     "deform_b_sequential": ["--family", "deform_b", "--s", "1.5"],
     "deform_b_level_batched_bf16": ["--family", "deform_b", "--level_batched", "--window_gops",
                                     "2", "--max_batch", "2", "--compute_dtype", "bfloat16",
@@ -205,8 +211,13 @@ CLI_CASES = {
 def test_cli_round_trip_is_bit_exact(tmp_path, case):
     extra = CLI_CASES[case]
     spread = {}
+    trace = tmp_path / "decode_trace.json"
+    dec_args = MODEL_ARGS + (["--trace", str(trace)] if case.endswith("_paired") else [])
     with chip_smoke.cli_heads_seeded(spread):
-        seq = _round_trip(tmp_path, SMALL + extra, MODEL_ARGS)
+        seq = _round_trip(tmp_path, SMALL + extra, dec_args)
+    if case.endswith("_paired"):
+        counters = json.loads(trace.read_text())["counters"]
+        assert counters["decode.paired_chunks"] > 0, counters
     if seq.family in chip_smoke.SEEDED_FAMILIES:
         # seeded heads: fractional flows and offsets in both passes
         chip_smoke.check_spread(spread, case, seq.family)

@@ -111,6 +111,7 @@ def _decode_level_batched(seq, coder, intra_coder, frame_cls) -> dict:
 
     from tpuvc_torch.cli.encode_v import to_host
     from tpuvc_torch.coder.container import IFrameBitstream
+    from tpuvc_torch.coder.parallel import run_steps
     from tpuvc_torch.gop.order import gop_coding_table
 
     gop = seq.gop
@@ -122,24 +123,47 @@ def _decode_level_batched(seq, coder, intra_coder, frame_cls) -> dict:
     decoded: dict = {}
     decoded_host: dict = {}
 
-    def flush(chunk, resolve=None):
+    def refs(chunk) -> list:
+        """The display indexes of each record's (before, after) references."""
+        out = []
+        for idx, _ in chunk:
+            g0 = (idx // gop) * gop
+            a, b = table.refs[idx - g0]
+            out.append((g0 + a, g0 + b))
+        return out
+
+    def references(chunk):
+        """The chunk's batched references (xb, xa), after dropping the
+        frames before its window, which can no longer be referenced."""
         w0 = (chunk[0][0] // window) * window
-        # Frames before this window can no longer be referenced.
         for k in [k for k in decoded if k < w0]:
             del decoded[k]
-        gs = [(idx // gop) * gop for idx, _ in chunk]
-        refs = [table.refs[idx - g0] for (idx, _), g0 in zip(chunk, gs)]
-        xb = torch.cat([decoded[g0 + a] for g0, (a, _) in zip(gs, refs)])
-        xa = torch.cat([decoded[g0 + b] for g0, (_, b) in zip(gs, refs)])
-        if resolve is None:
-            bits = [frame_cls.deserialize(blob) for _, blob in chunk]
-            x_hat = coder.decode_level_batch(xb, xa, bits)
-        else:
-            x_hat = resolve(xb, xa)
+        pairs = refs(chunk)
+        return (torch.cat([decoded[a] for a, _ in pairs]),
+                torch.cat([decoded[b] for _, b in pairs]))
+
+    def store(chunk, x_hat):
         x_hat = torch.clamp(x_hat, 0.0, 1.0)
         for i, (idx, _) in enumerate(chunk):
             decoded[idx] = x_hat[i : i + 1]
             decoded_host[idx] = to_host(x_hat[i])
+
+    def parse(chunk):
+        return [frame_cls.deserialize(blob) for _, blob in chunk]
+
+    def flush(chunk, resolve=None):
+        xb, xa = references(chunk)
+        store(chunk, coder.decode_level_batch(xb, xa, parse(chunk)) if resolve is None
+              else resolve(xb, xa))
+
+    def flush_pair(first, second):
+        """Two chunks of one level, decoded in turn on this thread: one's
+        rANS round trips run on workers while the other's device work
+        runs."""
+        steps = [coder.decode_level_batch_steps(*references(c), parse(c))
+                 for c in (first, second)]
+        for chunk, x_hat in zip((first, second), run_steps(*steps)):
+            store(chunk, x_hat)
 
     def flush_i(i_run):
         """Decode a run of consecutive I records in one batched forward:
@@ -157,8 +181,12 @@ def _decode_level_batched(seq, coder, intra_coder, frame_cls) -> dict:
     # chunk's rANS and entropy parameters are submitted up to `lookahead`
     # chunks ahead on workers while the device tail of earlier chunks runs.
     # v3's and v4's conditional bottlenecks need the references for their
-    # entropy parameters, so they decode chunk by chunk.
+    # entropy parameters, so they decode chunk by chunk; where the coder has
+    # a stepwise decode and codes unsharded, two chunks of one window and
+    # level whose references are all decoded run in turn.
     pipelined = hasattr(coder, "decode_level_batch_async")
+    stepwise = (hasattr(coder, "decode_level_batch_steps")
+                and getattr(coder, "shard", None) is None)
     lookahead = 4
     pending: dict = {}
 
@@ -166,18 +194,42 @@ def _decode_level_batched(seq, coder, intra_coder, frame_cls) -> dict:
         for j in range(start, min(start + lookahead, len(groups))):
             typ, recs = groups[j]
             if typ == "B" and j not in pending:
-                bits = [frame_cls.deserialize(blob) for _, blob in recs]
-                pending[j] = coder.decode_level_batch_async(bits)
+                pending[j] = coder.decode_level_batch_async(parse(recs))
 
-    for j, (typ, recs) in enumerate(groups):
+    def level(recs):
+        return level_of[recs[0][0] % gop]
+
+    def pairs_with(recs, j) -> bool:
+        """Group j is a B chunk of recs' window and level whose references
+        are all decoded."""
+        if not stepwise or j >= len(groups) or groups[j][0] != "B":
+            return False
+        nxt = groups[j][1]
+        return (nxt[0][0] // window == recs[0][0] // window and level(nxt) == level(recs)
+                and all(a in decoded and b in decoded for a, b in refs(nxt)))
+
+    j = 0
+    while j < len(groups):
+        typ, recs = groups[j]
         if typ == "I":
             with obs.span("intra", batch=len(recs)):
                 flush_i(recs)
+            j += 1
             continue
+        if pairs_with(recs, j + 1):
+            nxt = groups[j + 1][1]
+            obs.count("decode.chunks", 2)
+            obs.count("decode.paired_chunks", 2)
+            with obs.span("inter", level=level(recs), batch=len(recs) + len(nxt), chunks=2):
+                flush_pair(recs, nxt)
+            j += 2
+            continue
+        obs.count("decode.chunks")
         if pipelined:
             submit_ahead(j)
-        with obs.span("inter", level=level_of[recs[0][0] % gop], batch=len(recs)):
+        with obs.span("inter", level=level(recs), batch=len(recs)):
             flush(recs, pending.pop(j) if pipelined else None)
+        j += 1
     return decoded_host
 
 

@@ -14,5 +14,5 @@ def lib_path() -> str:
     """Path to the compiled shared object, building it if needed."""
     return build_library(
         "tpuvc_rans", [_SRC],
-        ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Werror"],
+        ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-Wall", "-Werror"],
     )

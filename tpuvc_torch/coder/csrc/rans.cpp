@@ -19,6 +19,7 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -110,6 +111,83 @@ inline int32_t unescape_raw(uint32_t raw, int32_t maxv) {
                     : maxv + static_cast<int32_t>(raw >> 1);
 }
 
+// Per-CDF coarse index over the top 8 bits of the 16-bit probability word:
+// lut[r * 257 + b] = largest symbol s with cdf_r[s] <= (b << 8). Narrows the
+// decoder's per-symbol search to the handful of symbols inside one bucket
+// (typically 0-1 binary steps instead of ~6 over a 66-entry CDF). Build
+// cost is ncdfs * 256, amortized over millions of symbols.
+std::vector<uint16_t> bucket_lut(const int32_t* cdfs, int ncdfs, int cdf_stride,
+                                 const int32_t* cdf_lengths) {
+  std::vector<uint16_t> bucket(static_cast<size_t>(ncdfs) * 257);
+  for (int r = 0; r < ncdfs; ++r) {
+    const int32_t len = cdf_lengths[r];
+    if (len < 3 || len > cdf_stride) continue;  // unused padding row
+    const int32_t* cdf = cdfs + static_cast<size_t>(r) * cdf_stride;
+    uint16_t* lut = bucket.data() + static_cast<size_t>(r) * 257;
+    int s = 0;
+    for (int b = 0; b < 256; ++b) {
+      while (s + 1 < len - 1 && cdf[s + 1] <= (b << 8)) ++s;
+      lut[b] = static_cast<uint16_t>(s);
+    }
+    lut[256] = static_cast<uint16_t>(len - 2);
+  }
+  return bucket;
+}
+
+// Decode one stream of n symbols against ``bucket`` (bucket_lut of the same
+// tables). Returns 0 on success, -2 on malformed input.
+template <typename Index, typename Symbol>
+int decode_stream(const uint8_t* stream, int nbytes, const Index* indexes, int n,
+                  const int32_t* cdfs, int ncdfs, int cdf_stride,
+                  const int32_t* cdf_lengths, const int32_t* offsets,
+                  const uint16_t* bucket, Symbol* out_symbols) {
+  if (nbytes < 4) return -2;
+  Decoder dec;
+  dec.init(stream, nbytes);
+
+  for (int i = 0; i < n; ++i) {
+    const int32_t idx = indexes[i];
+    if (idx < 0 || idx >= ncdfs) return -2;
+    const int32_t* cdf = cdfs + static_cast<size_t>(idx) * cdf_stride;
+    const int32_t len = cdf_lengths[idx];
+    if (len < 3 || len > cdf_stride) return -2;
+    const int32_t maxv = len - 2;
+
+    const uint32_t cf = dec.peek();
+    // Binary search for symbol s with cdf[s] <= cf < cdf[s+1], bounded
+    // by the bucket index.
+    const uint16_t* lut = bucket + static_cast<size_t>(idx) * 257;
+    int lo = lut[cf >> 8];
+    int hi = static_cast<int>(lut[(cf >> 8) + 1]) + 1;
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (static_cast<uint32_t>(cdf[mid]) <= cf) {
+        lo = mid;
+      } else {
+        hi = mid;
+      }
+    }
+    int32_t value = lo;
+    dec.advance(static_cast<uint32_t>(cdf[value]),
+                static_cast<uint32_t>(cdf[value + 1] - cdf[value]));
+
+    if (value == maxv) {
+      // Chunks arrive lowest-7-bits first (see encoder comment).
+      uint32_t raw = 0;
+      int shift = 0;
+      for (;;) {
+        const uint32_t chunk = dec.get_bits(8);
+        raw |= (chunk >> 1) << shift;
+        shift += 7;
+        if ((chunk & 1u) == 0) break;
+      }
+      value = unescape_raw(raw, maxv);
+    }
+    out_symbols[i] = static_cast<Symbol>(value + offsets[idx]);
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -165,68 +243,34 @@ int tpuvc_torch_rans_decode(const uint8_t* stream, int nbytes, const int32_t* in
                       int n, const int32_t* cdfs, int ncdfs, int cdf_stride,
                       const int32_t* cdf_lengths, const int32_t* offsets,
                       int32_t* out_symbols) {
-  if (nbytes < 4) return -2;
-  Decoder dec;
-  dec.init(stream, nbytes);
+  const std::vector<uint16_t> lut = bucket_lut(cdfs, ncdfs, cdf_stride, cdf_lengths);
+  return decode_stream(stream, nbytes, indexes, n, cdfs, ncdfs, cdf_stride, cdf_lengths,
+                       offsets, lut.data(), out_symbols);
+}
 
-  // Per-CDF coarse index over the top 8 bits of the 16-bit probability
-  // word: bucket[b] = largest symbol s with cdf[s] <= (b << 8). Narrows
-  // the per-symbol search to the handful of symbols inside one bucket
-  // (typically 0-1 binary steps instead of ~6 over a 66-entry CDF).
-  // Build cost is ncdfs * 256 — amortized over millions of symbols.
-  std::vector<uint16_t> bucket_lut(static_cast<size_t>(ncdfs) * 257);
-  for (int r = 0; r < ncdfs; ++r) {
-    const int32_t len = cdf_lengths[r];
-    if (len < 3 || len > cdf_stride) continue;  // unused padding row
-    const int32_t* cdf = cdfs + static_cast<size_t>(r) * cdf_stride;
-    uint16_t* lut = bucket_lut.data() + static_cast<size_t>(r) * 257;
-    int s = 0;
-    for (int b = 0; b < 256; ++b) {
-      while (s + 1 < len - 1 && cdf[s + 1] <= (b << 8)) ++s;
-      lut[b] = static_cast<uint16_t>(s);
-    }
-    lut[256] = static_cast<uint16_t>(len - 2);
-  }
-
-  for (int i = 0; i < n; ++i) {
-    const int32_t idx = indexes[i];
-    if (idx < 0 || idx >= ncdfs) return -2;
-    const int32_t* cdf = cdfs + static_cast<size_t>(idx) * cdf_stride;
-    const int32_t len = cdf_lengths[idx];
-    if (len < 3 || len > cdf_stride) return -2;
-    const int32_t maxv = len - 2;
-
-    const uint32_t cf = dec.peek();
-    // Binary search for symbol s with cdf[s] <= cf < cdf[s+1], bounded
-    // by the bucket index.
-    const uint16_t* lut = bucket_lut.data() + static_cast<size_t>(idx) * 257;
-    int lo = lut[cf >> 8];
-    int hi = static_cast<int>(lut[(cf >> 8) + 1]) + 1;
-    while (hi - lo > 1) {
-      const int mid = (lo + hi) >> 1;
-      if (static_cast<uint32_t>(cdf[mid]) <= cf) {
-        lo = mid;
-      } else {
-        hi = mid;
-      }
-    }
-    int32_t value = lo;
-    dec.advance(static_cast<uint32_t>(cdf[value]),
-                static_cast<uint32_t>(cdf[value + 1] - cdf[value]));
-
-    if (value == maxv) {
-      // Chunks arrive lowest-7-bits first (see encoder comment).
-      uint32_t raw = 0;
-      int shift = 0;
-      for (;;) {
-        const uint32_t chunk = dec.get_bits(8);
-        raw |= (chunk >> 1) << shift;
-        shift += 7;
-        if ((chunk & 1u) == 0) break;
-      }
-      value = unescape_raw(raw, maxv);
-    }
-    out_symbols[i] = value + offsets[idx];
+// Decode nstreams independent streams of n symbols each, one thread a
+// stream: stream k against the uint8 table indexes indexes[k * n ...], into
+// out_symbols[k * n ...] as int16 (the width the device quantizes symbols
+// to; a wider value wraps, as a cast would). Returns 0 on success, else the
+// first failing stream's code.
+int tpuvc_torch_rans_decode_batch(const uint8_t* const* streams, const int32_t* nbytes,
+                            int nstreams, const uint8_t* indexes, int n,
+                            const int32_t* cdfs, int ncdfs, int cdf_stride,
+                            const int32_t* cdf_lengths, const int32_t* offsets,
+                            int16_t* out_symbols) {
+  const std::vector<uint16_t> lut = bucket_lut(cdfs, ncdfs, cdf_stride, cdf_lengths);
+  std::vector<int> rcs(static_cast<size_t>(nstreams), 0);
+  auto run = [&](int k) {
+    const size_t at = static_cast<size_t>(k) * n;
+    rcs[k] = decode_stream(streams[k], nbytes[k], indexes + at, n, cdfs, ncdfs, cdf_stride,
+                           cdf_lengths, offsets, lut.data(), out_symbols + at);
+  };
+  std::vector<std::thread> threads;
+  for (int k = 1; k < nstreams; ++k) threads.emplace_back(run, k);
+  if (nstreams > 0) run(0);
+  for (auto& t : threads) t.join();
+  for (int rc : rcs) {
+    if (rc != 0) return rc;
   }
   return 0;
 }

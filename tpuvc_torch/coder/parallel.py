@@ -4,6 +4,12 @@ coders' symbol transfers between device and host.
 The level-batched coders produce one independent stream set per frame; the
 ctypes rANS calls release the GIL, so a thread pool codes them concurrently.
 Pools are created at first use and closed by :func:`shutdown`.
+
+The decoders' entropy decode is stepwise: a generator that issues its
+device work on the calling thread and yields at each host round trip
+(:func:`host_step`); :func:`run_steps` drives one such decode to its end,
+or several in turn, so that one's rANS runs while another's device work
+does.
 """
 
 from __future__ import annotations
@@ -97,12 +103,75 @@ def fetch(t):
     return a
 
 
-def upload(a, device):
-    """Decoded host symbols, as a tensor on ``device``."""
+def upload(a, device, non_blocking: bool = False):
+    """Decoded host symbols (an array, or a :func:`host_buffer`), as a
+    tensor on ``device``; ``non_blocking``: without waiting for the device,
+    from a pinned :func:`host_buffer`."""
     with obs.span("entropy.upload"):
-        t = torch.from_numpy(a).to(device)
-    obs.count("entropy.upload_bytes", a.nbytes)
+        t = (a if torch.is_tensor(a) else torch.from_numpy(a)).to(device, non_blocking=non_blocking)
+    obs.count("entropy.upload_bytes", t.numel() * t.element_size())
     return t
+
+
+def host_buffer(shape, dtype, device):
+    """An empty host tensor for decoded symbols to upload to ``device``: in
+    pinned memory where that is a card, so the upload need not wait. Fill it
+    through ``.numpy()``: a CPU tensor copy would wake PyTorch's intra-op
+    threads, which then spin beside the decode's own."""
+    return torch.empty(shape, dtype=dtype, pin_memory=torch.device(device).type == "cuda")
+
+
+def host_step(job, t=None):
+    """One host round trip of a stepwise decode (a generator; ``yield
+    from`` it): start the copy of the device tensor ``t`` to pinned host
+    memory without waiting, run ``job(the host array)`` on a worker once
+    the copy has landed (``job()`` without ``t``), yield the worker's
+    future, and return what ``job`` returned. The calling thread only
+    issues the copy; the worker waits on a CUDA event recorded after it
+    (a blocking-sync event: the wait sleeps, off the GIL, and leaves the
+    cores to the calling thread's dispatch) and runs no device work."""
+    if t is None:
+        fut = async_pool().submit(job)
+    else:
+        with obs.span("entropy.fetch"):
+            host = t.to("cpu", non_blocking=True)
+            landed = None
+            if t.device.type == "cuda":
+                landed = torch.cuda.Event(blocking=True)
+                landed.record(torch.cuda.current_stream(t.device))
+        obs.count("entropy.fetch_bytes", host.numel() * host.element_size())
+
+        def fetched_job():
+            if landed is not None:
+                landed.synchronize()
+            return job(host.numpy())
+
+        fut = async_pool().submit(fetched_job)
+    yield fut
+    return fut.result()
+
+
+def run_steps(*steps) -> list:
+    """Drive stepwise computations (generators that yield the futures of
+    their host work, :func:`host_step`) to their ends on this thread; ->
+    their results, in order. The one to resume is one whose future is done,
+    else the one started first, whose wait then blocks. One step alone runs
+    as its blocking form would."""
+    out = [None] * len(steps)
+    waiting: dict = {}
+
+    def advance(k):
+        try:
+            waiting[k] = next(steps[k])
+        except StopIteration as stop:
+            waiting.pop(k, None)
+            out[k] = stop.value
+
+    for k in range(len(steps)):
+        advance(k)
+    while waiting:
+        advance(next((k for k, fut in waiting.items() if fut.done()), min(waiting)))
+    return out
 
 
 def host_pool() -> ThreadPoolExecutor:

@@ -39,6 +39,12 @@ def _get_lib():
                 i32p, ctypes.c_int, ctypes.c_int, i32p, i32p,
                 i32p,
             ]
+            lib.tpuvc_torch_rans_decode_batch.restype = ctypes.c_int
+            lib.tpuvc_torch_rans_decode_batch.argtypes = [
+                ctypes.POINTER(u8p), i32p, ctypes.c_int, u8p, ctypes.c_int,
+                i32p, ctypes.c_int, ctypes.c_int, i32p, i32p,
+                ctypes.POINTER(ctypes.c_int16),
+            ]
             lib.tpuvc_torch_pmf_to_quantized_cdf.restype = ctypes.c_int
             lib.tpuvc_torch_pmf_to_quantized_cdf.argtypes = [
                 ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int, i32p,
@@ -132,4 +138,38 @@ def decode_with_indexes(stream: bytes, indexes, cdfs, cdf_lengths, offsets) -> n
     if rc != 0:
         raise ValueError(f"rANS decode failed (code {rc})")
     obs.count("entropy.rans_bytes", buf.size)
+    return out
+
+
+@obs.spanned("entropy.rans")
+def decode_batch(streams, indexes, cdfs, cdf_lengths, offsets, out) -> np.ndarray:
+    """Decode ``len(streams)`` independent streams in one native call, one
+    thread a stream: stream k's symbols against the uint8 CDF row indexes
+    ``indexes[k]``, written into ``out[k]`` as int16 (the symbols' device
+    width; a wider value wraps, as ``astype(np.int16)`` would). ``indexes``
+    and ``out`` are C-contiguous with ``len(streams)`` rows of equal size.
+    Returns ``out``."""
+    k = len(streams)
+    if not (isinstance(indexes, np.ndarray) and indexes.dtype == np.uint8
+            and indexes.flags.c_contiguous and len(indexes) == k):
+        raise ValueError(f"indexes: a C-contiguous uint8 array of {k} rows")
+    if not (isinstance(out, np.ndarray) and out.dtype == np.int16 and out.flags.c_contiguous
+            and out.shape == indexes.shape and out.flags.writeable):
+        raise ValueError(f"out: a writable C-contiguous int16 array of shape {indexes.shape}")
+    cdfs = _as_i32(cdfs)
+    cdf_lengths = _as_i32(cdf_lengths)
+    offsets = _as_i32(offsets)
+    bufs = [np.frombuffer(st, dtype=np.uint8) for st in streams]
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    ptrs = (u8p * k)(*(b.ctypes.data_as(u8p) for b in bufs))
+    nbytes = np.array([b.size for b in bufs], dtype=np.int32)
+    rc = _get_lib().tpuvc_torch_rans_decode_batch(
+        ptrs, _i32p(nbytes), k, indexes.ctypes.data_as(u8p), indexes.size // max(k, 1),
+        _i32p(cdfs), cdfs.shape[0], cdfs.shape[1],
+        _i32p(cdf_lengths), _i32p(offsets),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+    )
+    if rc != 0:
+        raise ValueError(f"rANS decode failed (code {rc})")
+    obs.count("entropy.rans_bytes", int(nbytes.sum()))
     return out

@@ -336,14 +336,6 @@ class GroupCoder:
         t = self.y_tables
         return encode_with_indexes(sym, idx, t.cdfs, t.cdf_lengths, t.offsets)
 
-    def _dec_y(self, stream: bytes, idx) -> np.ndarray:
-        from tpuvc_torch.coder import decode_with_indexes
-
-        t = self.y_tables
-        return decode_with_indexes(
-            stream, idx, t.cdfs, t.cdf_lengths, t.offsets
-        ).reshape(idx.shape)
-
     def _enc_z(self, sym) -> bytes:
         from tpuvc_torch.coder import encode_with_indexes
 
@@ -361,18 +353,17 @@ class GroupCoder:
         ).reshape(shape)
 
     @torch.no_grad()
-    def _code_group(self, i, curr_y, hyper, prev, streams=None,
-                    per_sample=False, submit=False):
-        """Two-phase checkerboard coding of group i at batch B.
+    def _code_group(self, i, curr_y, hyper, prev, per_sample=False, submit=False):
+        """Two-phase checkerboard encoding of group i at batch B.
 
         per_sample=False: one stream per phase for the whole batch;
         per_sample=True: one stream per (phase, sample), so each frame of a
-        level batch stays decodable on its own (``streams`` is then a pair
-        of per-sample lists). With ``submit`` the encoder's symbol fetches
-        and rANS run on a worker and the returned strings are futures.
-        Returns (group y_hat, [anchor, non-anchor] strings).
+        level batch stays decodable on its own. With ``submit`` the
+        encoder's symbol fetches and rANS run on a worker and the returned
+        strings are futures. Returns (group y_hat, [anchor, non-anchor]
+        strings).
         """
-        from tpuvc_torch.coder.parallel import async_pool, fetch, parallel_map, upload
+        from tpuvc_torch.coder.parallel import async_pool, fetch, parallel_map
 
         b, h, w = hyper.shape[0], hyper.shape[1], hyper.shape[2]
         gsize = self.module.groups[i]
@@ -382,40 +373,75 @@ class GroupCoder:
                 return self._enc_y(sym, idx)
             return parallel_map(lambda j: self._enc_y(sym[j], idx[j]), range(b))
 
-        def dec(strs, idx):
-            if not per_sample:
-                return self._dec_y(strs, idx)
-            return np.stack(parallel_map(lambda j: self._dec_y(strs[j], idx[j]), range(b)))
-
-        def phase(prev_hat, idxs, stream):
+        def phase(prev_hat, idxs):
             pi, pj = idxs
             scales, means = self.module.group_params(i, hyper, prev, prev_hat)
             idx_dev = self.gaussian.build_indexes(scales)[:, pi, pj].to(torch.uint8)
             means = means[:, pi, pj]
-            if stream is None:
-                # The device chain continues from the device's own symbols
-                # (int16 -> float32 is exact, so the values equal the
-                # decoder's uploads); the fetch and rANS run inline or on a
-                # worker.
-                sym_dev = quantize(curr_y[:, pi, pj], "symbols16", means=means)
+            # The device chain continues from the device's own symbols
+            # (int16 -> float32 is exact, so the values equal the decoder's
+            # uploads); the fetch and rANS run inline or on a worker.
+            sym_dev = quantize(curr_y[:, pi, pj], "symbols16", means=means)
 
-                def host_job():
-                    return enc(fetch(sym_dev), fetch(idx_dev))
+            def host_job():
+                return enc(fetch(sym_dev), fetch(idx_dev))
 
-                out = async_pool().submit(host_job) if submit else host_job()
-                return sym_dev.float() + means, out
-            sym = dec(stream, fetch(idx_dev)).astype(np.int16)
-            return upload(sym, self.device).float() + means, stream
+            out = async_pool().submit(host_job) if submit else host_job()
+            return sym_dev.float() + means, out
 
         # Each phase's entropy parameters are computed (in stream order)
         # before its values are written into y_hat.
         anchors, non_anchors = _phase_index(h, w, self.device)
         y_hat = torch.zeros((b, h, w, gsize), dtype=torch.float32, device=self.device)
-        vals_a, str_a = phase(y_hat, anchors, None if streams is None else streams[0])
+        vals_a, str_a = phase(y_hat, anchors)
         y_hat[:, anchors[0], anchors[1]] = vals_a
-        vals_n, str_n = phase(y_hat, non_anchors, None if streams is None else streams[1])
+        vals_n, str_n = phase(y_hat, non_anchors)
         y_hat[:, non_anchors[0], non_anchors[1]] = vals_n
         return y_hat, [str_a, str_n]
+
+    def _decode_group(self, i, hyper, prev, streams, per_sample=False):
+        """Inverse of _code_group, stepwise: a generator that issues each
+        phase's device work, yields at the phase's host round trip (the
+        index fetch and rANS, :func:`~tpuvc_torch.coder.parallel.host_step`)
+        and returns the group's y_hat. ``streams``: [anchor, non-anchor],
+        each one string for the batch or, with ``per_sample``, a list of
+        one a sample."""
+        from tpuvc_torch.coder import decode_batch
+        from tpuvc_torch.coder.parallel import host_buffer, host_step, upload
+
+        b, h, w = hyper.shape[0], hyper.shape[1], hyper.shape[2]
+        t = self.y_tables
+
+        def dec(streams):
+            def job(idx):  # one native call, a thread a stream
+                sym = host_buffer(idx.shape, torch.int16, self.device)
+                decode_batch(streams, idx.reshape(len(streams), -1), t.cdfs, t.cdf_lengths,
+                             t.offsets, sym.numpy().reshape(len(streams), -1))
+                return sym
+            return job
+
+        # Each phase's entropy parameters are computed (in stream order)
+        # before its values are written into y_hat.
+        phases = _phase_index(h, w, self.device)
+        y_hat = torch.zeros((b, h, w, self.module.groups[i]), dtype=torch.float32,
+                            device=self.device)
+        for (pi, pj), strs in zip(phases, streams):
+            scales, means = self.module.group_params(i, hyper, prev, y_hat)
+            idx_dev = self.gaussian.build_indexes(scales)[:, pi, pj].to(torch.uint8)
+            means = means[:, pi, pj]
+            sym = yield from host_step(dec(strs if per_sample else [strs]), idx_dev)
+            y_hat[:, pi, pj] = upload(sym, self.device, non_blocking=True).float() + means
+        return y_hat
+
+    def _decode_groups(self, hyper, streams, per_sample=False):
+        """Every group in order, stepwise (as _decode_group): -> the
+        batch's y_hat. ``streams``: [anchor, non-anchor] a group."""
+        groups_hat = []
+        for i, strs in enumerate(streams):
+            g_hat = yield from self._decode_group(
+                i, hyper, self._prev(groups_hat, hyper), strs, per_sample)
+            groups_hat.append(g_hat)
+        return torch.cat(groups_hat, dim=-1)
 
     def _prev(self, groups_hat, hyper):
         if groups_hat:
@@ -453,15 +479,25 @@ class GroupCoder:
 
         return z_sym_dev.float() + self.z_medians, async_pool().submit(z_job)
 
-    def _dec_z_per_sample(self, z_strings, z_shape):
-        """Inverse of _code_z_per_sample: the batch's z_hat."""
-        from tpuvc_torch.coder.parallel import parallel_map, upload
+    def _decode_z(self, z_strings, z_shape):
+        """Inverse of _code_z_per_sample, stepwise (as _decode_group): the
+        batch's z_hat."""
+        from tpuvc_torch.coder.parallel import host_buffer, host_step, parallel_map, upload
 
-        zh, zw = z_shape
-        z_sym = np.stack(parallel_map(
-            lambda zs: self._dec_z(zs, (zh, zw, self.module.N)), z_strings
-        ))
-        return upload(z_sym.astype(np.float32), self.device) + self.z_medians
+        shape = tuple(z_shape) + (self.module.N,)
+
+        def job():
+            z_sym = host_buffer((len(z_strings),) + shape, torch.float32, self.device)
+            rows = z_sym.numpy()
+
+            def one(j):
+                rows[j] = self._dec_z(z_strings[j], shape)
+
+            parallel_map(one, range(len(z_strings)))
+            return z_sym
+
+        z_sym = yield from host_step(job)
+        return upload(z_sym, self.device, non_blocking=True) + self.z_medians
 
 
 class CondELICCoder(GroupCoder):
@@ -530,34 +566,35 @@ class CondELICCoder(GroupCoder):
         return out
 
     @torch.no_grad()
+    def decompress_batch_steps(self, per_frame_streams, z_shape, conds, temporal_cond, s):
+        """decompress_batch stepwise: a generator that yields at each host
+        round trip of the entropy decode (z, then each group's two phases)
+        and returns the batched synthesis
+        (:func:`~tpuvc_torch.coder.parallel.run_steps` drives it)."""
+        m = self.module
+        z_hat = yield from self._decode_z([f[0] for f in per_frame_streams], z_shape)
+        hyper = m.hyper_params(z_hat, temporal_cond, s)
+        streams = [[[f[1 + 2 * i] for f in per_frame_streams],
+                    [f[2 + 2 * i] for f in per_frame_streams]] for i in range(len(m.groups))]
+        y_hat = yield from self._decode_groups(hyper, streams, per_sample=True)
+        return m.synthesis(y_hat, *conds, s)
+
     def decompress_batch(self, per_frame_streams, z_shape, conds, temporal_cond, s):
         """Inverse of compress_batch: per-frame stream lists in, batched
         synthesis out (the encoder's batch shapes)."""
-        m = self.module
-        z_hat = self._dec_z_per_sample([f[0] for f in per_frame_streams], z_shape)
-        hyper = m.hyper_params(z_hat, temporal_cond, s)
-        groups_hat = []
-        for i in range(len(m.groups)):
-            strs = [[f[1 + 2 * i] for f in per_frame_streams],
-                    [f[2 + 2 * i] for f in per_frame_streams]]
-            g_hat, _ = self._code_group(
-                i, None, hyper, self._prev(groups_hat, hyper), streams=strs,
-                per_sample=True,
-            )
-            groups_hat.append(g_hat)
-        return m.synthesis(torch.cat(groups_hat, dim=-1), *conds, s)
+        from tpuvc_torch.coder.parallel import run_steps
+
+        return run_steps(self.decompress_batch_steps(
+            per_frame_streams, z_shape, conds, temporal_cond, s))[0]
 
     @torch.no_grad()
     def decompress(self, streams, z_shape, conds, temporal_cond, s, batch=1):
         """Inverse of compress: one stream set for the whole batch."""
+        from tpuvc_torch.coder.parallel import run_steps
+
         m = self.module
         z_hat, _, _ = self._code_z(None, z_string=streams[0], z_shape=z_shape, batch=batch)
         hyper = m.hyper_params(z_hat, temporal_cond, s)
-        groups_hat = []
-        for i in range(len(m.groups)):
-            g_hat, _ = self._code_group(
-                i, None, hyper, self._prev(groups_hat, hyper),
-                streams=[streams[1 + 2 * i], streams[2 + 2 * i]],
-            )
-            groups_hat.append(g_hat)
-        return m.synthesis(torch.cat(groups_hat, dim=-1), *conds, s)
+        y_hat = run_steps(self._decode_groups(
+            hyper, [streams[1 + 2 * i : 3 + 2 * i] for i in range(len(m.groups))]))[0]
+        return m.synthesis(y_hat, *conds, s)

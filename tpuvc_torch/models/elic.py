@@ -179,15 +179,12 @@ class ELICCoder(GroupCoder):
             set_deterministic(device)
         super().__init__(module.to(device).eval())
 
-    def _code_groups(self, y, hyper, streams=None, per_sample=False, submit=False):
+    def _code_groups(self, y, hyper, per_sample=False, submit=False):
         """Every group in order: -> (y_hat, [[anchor, non-anchor] per group])."""
-        groups = self.module.groups
-        ys = [None] * len(groups) if y is None else torch.split(y, groups, dim=-1)
         groups_hat, strings = [], []
-        for i, curr_y in enumerate(ys):
+        for i, curr_y in enumerate(torch.split(y, self.module.groups, dim=-1)):
             g_hat, strs = self._code_group(
                 i, curr_y, hyper, self._prev(groups_hat, hyper),
-                streams=None if streams is None else streams[i],
                 per_sample=per_sample, submit=submit,
             )
             groups_hat.append(g_hat)
@@ -248,21 +245,25 @@ class ELICCoder(GroupCoder):
     def decompress_batch(self, per_frame, shape):
         """Inverse of compress_batch: [(y_strings, z_string)] * B in, the
         batch's decoded images out (the encoder's batch shapes)."""
+        from tpuvc_torch.coder.parallel import run_steps
+
         hyper = self.module.hyper_params(
-            self._dec_z_per_sample([f[1] for f in per_frame], shape)
+            run_steps(self._decode_z([f[1] for f in per_frame], shape))[0]
         )
         streams = [
             [[f[0][2 * i] for f in per_frame], [f[0][2 * i + 1] for f in per_frame]]
             for i in range(len(self.module.groups))
         ]
-        y_hat, _ = self._code_groups(None, hyper, streams=streams, per_sample=True)
+        y_hat = run_steps(self._decode_groups(hyper, streams, per_sample=True))[0]
         return self.module.g_s(y_hat)
 
     @torch.no_grad()
     def decompress(self, strings, shape, batch: int = 1):
         """Inverse of compress: (y_strings, z_string) -> decoded images."""
+        from tpuvc_torch.coder.parallel import run_steps
+
         y_strings, z_string = strings
         z_hat, _, _ = self._code_z(None, z_string=z_string, z_shape=shape, batch=batch)
         streams = [y_strings[2 * i : 2 * i + 2] for i in range(len(self.module.groups))]
-        y_hat, _ = self._code_groups(None, self.module.hyper_params(z_hat), streams=streams)
+        y_hat = run_steps(self._decode_groups(self.module.hyper_params(z_hat), streams))[0]
         return self.module.g_s(y_hat)

@@ -24,6 +24,7 @@ from torch import nn
 
 from tpuvc_torch import obs, resolve_device
 from tpuvc_torch.coder.container import VFrameBitstream
+from tpuvc_torch.coder.parallel import run_steps
 from tpuvc_torch.entropy.emath import likelihood_to_bits, per_sample_bits
 from tpuvc_torch.models.cond_elic import CondELICCoder, OffsetELIC, ResELIC
 from tpuvc_torch.models.layers import init_weights
@@ -327,10 +328,14 @@ class FlowGuidedBCoder:
         )
         return resolve(), x_hat
 
-    @sharded_level_decode
     @torch.no_grad()
-    def decode_level_batch(self, xref1, xref2, bitstreams):
-        """Inverse of encode_level_batch (the encoder's batch shapes)."""
+    def decode_level_batch_steps(self, xref1, xref2, bitstreams):
+        """decode_level_batch stepwise: a generator that issues the chunk's
+        device work on the calling thread and yields at each host round
+        trip of the two bottlenecks' entropy decode (a z and two phases a
+        group each), -> x_hat (B, ...). ``coder.parallel.run_steps`` drives
+        one to its end, or two chunks of one level in turn, so that one's
+        rANS runs while the other's device work does."""
         xref1, xref2 = self._to(xref1, xref2)
         m = self.model
         b0 = bitstreams[0]
@@ -340,15 +345,20 @@ class FlowGuidedBCoder:
         cond, offset_temp, flows, fref1, fref2 = m.decoder_context(
             xref1, xref2, scale1, scale2, int(b0.down_ratio)
         )
-        heads = self.offset_coder.decompress_batch(
+        heads = yield from self.offset_coder.decompress_batch_steps(
             [list(b.streams[:n]) for b in bitstreams], b0.z_shape, cond, offset_temp, s
         )
         x_comp = m.fuse_offsets(heads, fref1, fref2, flows)
-        residues = self.res_coder.decompress_batch(
+        residues = yield from self.res_coder.decompress_batch_steps(
             [list(b.streams[n:]) for b in bitstreams], b0.z_shape, x_comp,
             m.residual_cond(x_comp), s,
         )
         return self._recon(x_comp, residues)
+
+    @sharded_level_decode
+    def decode_level_batch(self, xref1, xref2, bitstreams):
+        """Inverse of encode_level_batch (the encoder's batch shapes)."""
+        return run_steps(self.decode_level_batch_steps(xref1, xref2, bitstreams))[0]
 
     @torch.no_grad()
     def decode(self, xref1, xref2, bitstream: VFrameBitstream):
