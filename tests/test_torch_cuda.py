@@ -301,6 +301,33 @@ def test_deform_kernel_at_the_v3_shapes(cuda, case):
     assert float((out - ref).abs().max()) <= 2e-5
 
 
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_deform_wide_launches_count_the_wide_instance(cuda, misaligned):
+    """``deform.launches.wide`` counts the launches that csrc/deform.cu sends
+    to its <V, MAXO> instance: V = 4 where the group width divides by 4 and
+    x is 16-byte aligned (else 1), and more than 2 outputs a lane,
+    ceil(Og / (Cg / V)). v3's shapes take it, v4's do not."""
+    from tpuvc_torch import obs
+    from tpuvc_torch.ops.deform import deform_kernel
+
+    for B, H, W, G, Cg, Og, spread in DEFORM_CASES + V3_DEFORM_CASES:
+        H = min(H, 24)
+        x, off, masks, weight, bias = (t.to(cuda) for t in
+                                       _deform_inputs(B, H, W, G, Cg, Og, spread))
+        if misaligned:
+            x = _misaligned(x)
+        V = 4 if Cg % 4 == 0 and x.data_ptr() % 16 == 0 else 1
+        wide = -(-Og // (Cg // V)) > 2
+        before = obs.counters()
+        deform_kernel(x, off, masks, weight, bias, G)
+        after = obs.counters()
+        assert after["deform.launches"] == before["deform.launches"] + 1
+        assert after["deform.launches.wide"] == before["deform.launches.wide"] + wide, \
+            (B, H, W, G, Cg, Og)
+        if (G, Cg, Og) == (8, 4, 4) and not misaligned:
+            assert wide  # v3's first level
+
+
 def test_deform_kernel_misaligned_input(cuda):
     """x that does not start on a 16-byte boundary takes the scalar lanes."""
     from tpuvc_torch.ops.deform import deform_kernel, deform_plain

@@ -276,3 +276,50 @@ def test_gop_window_round_trip_is_bit_exact(coder):
     for f, x in recon.items():
         assert torch.equal(decoded[f], x), f
         assert torch.isfinite(x).all() and x.shape == slot[f].shape
+
+
+#: The stage spans of a traced DeformB coding call: the model's own stages
+#: and those of its parts (CondELIC's, MSFeature's, TemporalEnc's, the
+#: reconstructor's).
+V3_STAGES = {
+    "stage.decoder_context", "stage.feature_extractor.forward",
+    "stage.offset_temp_encoder.forward", "stage.fuse_offsets", "stage.residual_cond",
+    "stage.residual_temp_encoder.forward", "stage.reconstruct", "stage.reconstructor.forward",
+    *(f"stage.{c}.{m}" for c in ("offset_compressor", "residual_compressor")
+      for m in ("analysis", "hyper_params", "group_params", "synthesis")),
+}
+
+
+def test_traced_coding_calls_open_the_stage_spans(coder):
+    from tpuvc_torch import obs
+
+    x1, xc, x2 = (torch.from_numpy(a) for a in _frames(seed=4))
+    obs.reset()
+    obs.enable()
+    try:
+        bits, _ = coder.encode_level_batch(x1, x2, xc, 1.5)
+        coder.decode_level_batch(x1, x2, bits)
+    finally:
+        obs.disable()
+    names = [r.name for r in obs.records()]
+    obs.reset()
+    assert V3_STAGES <= set(names), sorted(V3_STAGES - set(names))
+    # both coders' entropy parameters: 5 groups x 2 phases, encode and decode
+    assert names.count("stage.offset_compressor.group_params") == 2 * 2 * len(coder.model.groups)
+    # off, nothing is recorded
+    coder.encode_level_batch(x1, x2, xc, 1.5)
+    assert obs.records() == []
+
+
+@pytest.mark.parametrize("Cg,Og,aligned,per_lane", [
+    (4, 4, True, 4), (8, 8, True, 4), (12, 12, True, 4),  # v3's three levels
+    (8, 4, True, 2), (12, 6, True, 2), (16, 8, True, 2),  # v4's
+    (4, 4, False, 1), (5, 11, True, 3), (64, 128, True, 8), (12, 128, False, 11),
+])
+def test_outputs_per_lane_follow_the_kernel_s_rule(Cg, Og, aligned, per_lane):
+    """csrc/deform.cu: float4 lanes where the group width divides by 4 and
+    x is 16-byte aligned, else one channel a lane; a group's outputs over
+    its lanes, above 2 the <V, MAXO> instance."""
+    from tpuvc_torch.ops.deform import outputs_per_lane
+
+    assert outputs_per_lane(Cg, Og, 4096 if aligned else 4100) == per_lane

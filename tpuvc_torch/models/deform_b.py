@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tpuvc_torch import resolve_device
+from tpuvc_torch import obs, resolve_device
 from tpuvc_torch.coder.container import VFrameBitstream
 from tpuvc_torch.entropy.emath import likelihood_to_bits, per_sample_bits
 from tpuvc_torch.models.cond_elic import CondELIC, CondELICCoder
@@ -77,6 +77,7 @@ class DeformB(nn.Module):
         self.reconstructor = ReconstructorDeconv(channels=comp)
         if generator is not None:
             init_weights(self, generator)
+        obs.name_stages(self)
 
     def _deform_pair(self, head, f1, f2, level: int):
         """Align both references' features at one scale (level 1, 2, 3) with
@@ -85,6 +86,7 @@ class DeformB(nn.Module):
         d1, d2 = (getattr(self, f"deconv_l{level}_{ref}") for ref in (1, 2))
         return torch.cat([d1(f1, *_head_to_deform(o1)), d2(f2, *_head_to_deform(o2))], dim=-1)
 
+    @obs.stage
     def decoder_context(self, xref1, xref2):
         """What the decoder computes from the references: the conditioning
         pyramid (both references' features side by side), the offset
@@ -97,13 +99,16 @@ class DeformB(nn.Module):
     def features(self, x):
         return self.feature_extractor(x)
 
+    @obs.stage
     def fuse_offsets(self, heads, fref1, fref2):
         """The decoded offset heads (out1, out2, out3) -> x_comp per scale."""
         return tuple(self._deform_pair(heads[i], fref1[i], fref2[i], i + 1) for i in range(3))
 
+    @obs.stage
     def residual_cond(self, x_comp):
         return self.residual_temp_encoder(*x_comp)
 
+    @obs.stage
     def reconstruct(self, x1, x2, x3):
         return self.reconstructor(x1, x2, x3)
 

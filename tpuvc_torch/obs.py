@@ -156,7 +156,8 @@ def records() -> list:
 
 def counters() -> dict:
     """The counters since the last :func:`reset`, with the two hand
-    kernels' launch counters (``ops.warp``, ``ops.deform``), which count
+    kernels' launch counters (``ops.warp``, ``ops.deform``; the deform
+    launches that took its ``<V, MAXO>`` instance apart), which count
     whether tracing is on or not."""
     from tpuvc_torch.ops import deform, warp
 
@@ -164,6 +165,7 @@ def counters() -> dict:
         out = dict(_COUNTS)
     out["warp.launches"] = warp.warp_kernel.launches
     out["deform.launches"] = deform.deform_kernel.launches
+    out["deform.launches.wide"] = deform.deform_kernel.wide_launches
     return out
 
 

@@ -169,6 +169,14 @@ def lane_width(Cg: int, x_ptr: int) -> int:
     return 4 if Cg % 4 == 0 and x_ptr % 16 == 0 else 1
 
 
+def outputs_per_lane(Cg: int, Og: int, x_ptr: int) -> int:
+    """Output channels each lane accumulates, as the kernel counts them
+    (csrc/deform.cu, ``tpuvc_deform_conv_nhwc``): a group's outputs over
+    its lanes. Above 2 the launch takes the ``<V, MAXO>`` instance."""
+    per_group = Cg // lane_width(Cg, x_ptr)
+    return -(-Og // per_group)
+
+
 def deform_kernel(x, offsets, masks, weight, bias, groups: int,
                   kernel: int = 3, y0: int = 0) -> torch.Tensor:
     """Launch the CUDA deform kernel (arguments as :func:`deform_plain`;
@@ -221,11 +229,15 @@ def deform_kernel(x, offsets, masks, weight, bias, groups: int,
     if rc != 0:
         raise RuntimeError(f"deform kernel launch failed: cudaError {rc}")
     deform_kernel.launches += 1
+    if outputs_per_lane(Cg, Og, x.data_ptr()) > 2:
+        deform_kernel.wide_launches += 1
     return out
 
 
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches since the count was last set to 0, and those of them
+#: that took the kernel's ``<V, MAXO>`` instance (:func:`outputs_per_lane`).
 deform_kernel.launches = 0
+deform_kernel.wide_launches = 0
 
 
 class _DeformKernelFn(torch.autograd.Function):
