@@ -179,7 +179,7 @@ def main(argv=None) -> int:
     from tpuvc_torch.gop.order import gop_coding_table
     from tpuvc_torch.gop.scheduler import code_gops_batched
     from tpuvc_torch.models.lhbdc import LHBDC, LHBDCCoder
-    from tpuvc_torch.ops import deform, warp
+    from tpuvc_torch.ops import deform, epilogue, warp
     from tpuvc_torch.ops.precision import mixed_precision, policy_from_name, set_deterministic
 
     device = resolve_device(args.device)
@@ -221,9 +221,11 @@ def main(argv=None) -> int:
 
     def zero_launches():
         warp.warp_kernel.launches = deform.deform_kernel.launches = 0
+        epilogue.epilogue_kernel.launches = 0
 
     def read_launches():
-        return {"warp": warp.warp_kernel.launches, "deform": deform.deform_kernel.launches}
+        return {"warp": warp.warp_kernel.launches, "deform": deform.deform_kernel.launches,
+                "epilogue": epilogue.epilogue_kernel.launches}
 
     def payload(t_enc, t_dec, nwin, total_bytes, extra=None):
         encdec_fps = 2 * nwin * n_real / (t_enc + t_dec)

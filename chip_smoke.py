@@ -23,8 +23,8 @@ each decode must reproduce its encoder's reconstructions bit for bit. Each
 phase runs under its own time limit and prints JSON lines:
 
   device             card name, power limit, software versions
-  build              warp and deform kernels (nvcc, in parallel) and rANS
-                     library (g++) build times
+  build              warp, deform and epilogue kernels (nvcc, in parallel)
+                     and rANS library (g++) build times
   warp_check         kernel vs warp_plain per shape, whole frames and rows
                      [y0, y0 + rows) of a reference (also held to those
                      rows of a whole-frame launch): max abs error (<= 1e-5)
@@ -43,6 +43,10 @@ phase runs under its own time limit and prints JSON lines:
                      launches must give the same bits; then rows
                      [y0, y0 + rows) of a whole map (DEFORM_ROW_SHAPES),
                      each bit for bit those rows of a whole-frame launch
+  epilogue_check     the conv epilogue kernel vs epilogue_plain at the
+                     paths' shapes (EPILOGUE_SHAPES), bit for bit; kernel,
+                     plain-ops and two-op rewrite (epilogue_simple) times,
+                     byte bound
   train_kernel_check both kernels at the training shapes (batch 8, 256x256
                      crops): the forward against the plain version, the
                      kernel path's gradients (kernel forward, autograd of
@@ -166,7 +170,7 @@ phase runs under its own time limit and prints JSON lines:
                      and, apart, of its timed eval passes
   path_shapes_check  every kernel shape the paths launched in this process
                      that the checks above did not cover, held against the
-                     plain version (bench_torch.py's shapes are a subset of
+                     plain version (the epilogue's bit for bit) (bench_torch.py's shapes are a subset of
                      eval_cli's and main_path's)
 
 then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
@@ -180,6 +184,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import json
+import math
 import os
 import signal
 import subprocess
@@ -284,6 +289,27 @@ DEFORM_ROW_SHAPES = [
     ("L1", (2, 544, 960, 128), 16, 64, 136, 136),
     ("v3 L1", (2, 544, 960, 32), 8, 32, 408, 136),
     ("L3", (2, 136, 240, 256), 16, 128, 67, 1),
+]
+
+
+# The conv epilogue's shapes on the paths (NHWC, the conv output's dtype,
+# activation, slope, residual, bias): SPyNet's full-resolution convs at
+# batch 8 (coding's two flows of four B-frames; the last with SPyNet's
+# upsampled flow as residual), MaskUNet's first conv, a
+# ResidualBottleneckBlock's last conv with its residual, a hyperprior's leaky
+# ReLU, a transposed conv's cast (no bias, no activation) and a float32
+# conv's bias and ReLU. The first is the kernel's headline. Every other
+# shape a path launched goes to path_shapes_check.
+EPILOGUE_SHAPES = [
+    ("spynet_conv1", (8, 1088, 1920, 64), "bfloat16", "relu", 0.01, False, True),
+    ("spynet_conv0", (8, 1088, 1920, 32), "bfloat16", "relu", 0.01, False, True),
+    ("spynet_conv3", (8, 1088, 1920, 16), "bfloat16", "relu", 0.01, False, True),
+    ("spynet_conv4_residual", (8, 1088, 1920, 2), "bfloat16", None, 0.01, True, True),
+    ("maskunet_conv0", (4, 1088, 1920, 32), "bfloat16", "relu", 0.01, False, True),
+    ("bottleneck_conv2_residual", (4, 272, 480, 128), "bfloat16", None, 0.01, True, True),
+    ("hyperprior_leaky", (4, 68, 120, 128), "bfloat16", "leaky_relu", 0.01, False, True),
+    ("deconv_cast", (4, 544, 960, 128), "bfloat16", None, 0.01, False, False),
+    ("float32_bias_relu", (4, 544, 960, 64), "float32", "relu", 0.01, False, True),
 ]
 
 
@@ -895,9 +921,10 @@ def drive_window(torch, coder, phase_name: str, model: str, B: int, family: str,
 class LaunchLog:
     """Stands in for a kernel's loaded library (the wrappers reach it
     through ``_get_lib()``): records the shape arguments of every launch of
-    ``fn``, then launches. ``dims`` picks them from the C call's arguments."""
+    ``fn``, then launches. ``dims`` picks them from the C call's arguments
+    (a slice, or a function of the argument tuple)."""
 
-    def __init__(self, lib, fn: str, dims: slice):
+    def __init__(self, lib, fn: str, dims):
         self._lib, self._fn, self._dims = lib, fn, dims
         self.shapes: set = set()
 
@@ -907,31 +934,44 @@ class LaunchLog:
             return fn
 
         def launch(*args):
-            self.shapes.add(tuple(args[self._dims]))
+            dims = self._dims(args) if callable(self._dims) else args[self._dims]
+            self.shapes.add(tuple(dims))
             return fn(*args)
 
         return launch
 
 
+def epilogue_key(args) -> tuple:
+    """The shape of an epilogue launch from its C call's arguments: (bf16,
+    bias, residual, n, C, channel stride, activation code, slope)."""
+    return (args[1], args[2] is not None, args[3] is not None, *args[5:10])
+
+
 def log_launches() -> dict:
     """Put a LaunchLog in front of each built kernel library. Keys: warp
     (B, H, W, C, sx, sy, zero, y0, H_out), deform (B, H, W, G, Cg, Og, K, y0,
-    H_out)."""
-    from tpuvc_torch.ops import deform, warp
+    H_out), epilogue (:func:`epilogue_key`)."""
+    from tpuvc_torch.ops import deform, epilogue, warp
 
     warp._lib = LaunchLog(warp._get_lib(), "tpuvc_warp_bilinear_nhwc", slice(3, 12))
     deform._lib = LaunchLog(deform._get_lib(), "tpuvc_deform_conv_nhwc", slice(6, 15))
-    return {"warp": warp._lib.shapes, "deform": deform._lib.shapes}
+    epilogue._lib = LaunchLog(epilogue._get_lib(), "tpuvc_epilogue", epilogue_key)
+    return {"warp": warp._lib.shapes, "deform": deform._lib.shapes,
+            "epilogue": epilogue._lib.shapes}
 
 
-def path_shapes_check(torch, logged: dict, warp_rows, deform_rows) -> list[dict]:
-    """Every warp and deform shape a path launched that warp_check and
-    deform_check did not hold against the plain versions (SPyNet's middle
-    pyramid levels, a spatial rank's rows, for two): the kernel against
-    warp_plain's sampling (bit for bit) and deform_plain (smooth +-5 px
-    offsets, <= 2e-5; a launch of rows [y0, y0 + H_out) also bit for bit
-    against those rows of a whole-frame launch) once, on seeded inputs."""
+def path_shapes_check(torch, logged: dict, warp_rows, deform_rows,
+                      epilogue_rows=()) -> list[dict]:
+    """Every warp, deform and epilogue shape a path launched that
+    warp_check, deform_check and epilogue_check did not hold against the
+    plain versions (SPyNet's middle pyramid levels, a spatial rank's rows,
+    every conv's epilogue, for three): the kernel against warp_plain's
+    sampling (bit for bit), deform_plain (smooth +-5 px offsets, <= 2e-5; a
+    launch of rows [y0, y0 + H_out) also bit for bit against those rows of a
+    whole-frame launch) and epilogue_plain (bit for bit, the conv output
+    laid out as the launch had it) once, on seeded inputs."""
     from tpuvc_torch.ops import deform as D
+    from tpuvc_torch.ops import epilogue as E
     from tpuvc_torch.ops import warp as W
 
     checked_warp = set()
@@ -975,22 +1015,75 @@ def path_shapes_check(torch, logged: dict, warp_rows, deform_rows) -> list[dict]
         if not (err <= 2e-5 and whole):
             raise AssertionError(f"deform at a path's shape differs from deform_plain or the "
                                  f"whole frame's rows: {rows[-1]}")
+    acts = {code: act for act, code in E._ACTS.items()}
+    checked_epilogue = {
+        (int(r["dtype"] == "bfloat16"), r["bias"], r["residual"], math.prod(r["shape"]),
+         r["shape"][3], 1, E._ACTS[r["act"]], r["slope"]) for r in epilogue_rows}
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        for key in sorted(logged.get("epilogue", set()) - checked_epilogue, key=repr):
+            bf16, has_bias, res, n, C, cstride, code, slope = key
+            dtype = torch.bfloat16 if bf16 else torch.float32
+            if cstride == 1:  # channels-last memory, split below along its pixels
+                y = torch.randn((1, n // C, 1, C), generator=gen, device="cuda", dtype=dtype)
+                y, dim = y.permute(0, 3, 1, 2), 2
+            else:  # NCHW, cstride pixels a channel, split along its batch; as an
+                # (h, w) with no size-one side where cstride has one (a launch that
+                # applied the activation to an NCHW output had none)
+                h = next((d for d in range(2, math.isqrt(cstride) + 1) if cstride % d == 0),
+                         cstride)
+                y = torch.randn((n // (C * cstride), C, h, cstride // h), generator=gen,
+                                device="cuda", dtype=dtype)
+                dim = 0
+            bias = torch.randn(C, generator=gen, device="cuda") if has_bias else None
+            r = (torch.randn(y.permute(0, 2, 3, 1).shape, generator=gen, device="cuda")
+                 if res else None)
+            out_k = E.epilogue_kernel(y, bias, acts[code], slope, r)
+            # the plain ops are elementwise: held part by part, a few GiB at a time
+            step = max(1, math.ceil(y.shape[dim] * min(1.0, 2**28 / n)))
+            err, exact = 0.0, True
+            for i in range(0, y.shape[dim], step):
+                part = (slice(None),) * dim + (slice(i, i + step),)
+                part_nhwc = tuple(part[k] if k < len(part) else slice(None)
+                                  for k in (0, 2, 3, 1))
+                out_p = E.epilogue_plain(y[part], bias, acts[code], slope,
+                                         None if r is None else r[part_nhwc])
+                got = out_k[part_nhwc]
+                err = max(err, float((got - out_p).abs().nan_to_num(0.0).max()))
+                exact = exact and bool(torch.equal(got.contiguous().view(torch.int32),
+                                                   out_p.contiguous().view(torch.int32)))
+            rows.append({"phase": "path_shapes_check", "kernel": "epilogue", "bf16": bool(bf16),
+                         "bias": has_bias, "residual": res, "n": n, "C": C,
+                         "cstride": cstride, "act": acts[code], "slope": slope,
+                         "max_abs_err": err, "bit_exact": exact})
+            del y, bias, r, out_k, out_p, got
+            if n > 2**28:
+                torch.cuda.empty_cache()
+            if not rows[-1]["bit_exact"]:
+                emit(rows[-1])
+                raise AssertionError(f"epilogue at a path's shape differs from epilogue_plain: "
+                                     f"{rows[-1]}")
     emit({"phase": "path_shapes_check", "warp_shapes_launched": len(logged["warp"]),
-          "deform_shapes_launched": len(logged["deform"]), "checked_here": len(rows)})
+          "deform_shapes_launched": len(logged["deform"]),
+          "epilogue_shapes_launched": len(logged.get("epilogue", ())),
+          "epilogue_checked_here": sum(r["kernel"] == "epilogue" for r in rows),
+          "checked_here": len(rows)})
     return rows
 
 
 def reset_launches() -> None:
-    from tpuvc_torch.ops import deform, warp
+    from tpuvc_torch.ops import deform, epilogue, warp
 
     warp.warp_kernel.launches = 0
     deform.deform_kernel.launches = 0
+    epilogue.epilogue_kernel.launches = 0
 
 
 def read_launches() -> dict:
-    from tpuvc_torch.ops import deform, warp
+    from tpuvc_torch.ops import deform, epilogue, warp
 
-    return {"warp": warp.warp_kernel.launches, "deform": deform.deform_kernel.launches}
+    return {"warp": warp.warp_kernel.launches, "deform": deform.deform_kernel.launches,
+            "epilogue": epilogue.epilogue_kernel.launches}
 
 
 def main_path(torch) -> dict:
@@ -1224,7 +1317,6 @@ DECODE_IN_A_NEW_PROCESS = """
 import hashlib, importlib, json, sys, time
 import torch
 import chip_smoke
-from tpuvc_torch.ops import deform, warp
 free0 = torch.cuda.mem_get_info()[0]
 cli = importlib.import_module("tpuvc_torch.cli." + sys.argv[1])
 t0 = time.perf_counter()
@@ -1232,7 +1324,7 @@ with chip_smoke.cli_heads_seeded():
     rec = cli.main(sys.argv[2:])
 print(json.dumps({
     "main_s": time.perf_counter() - t0,
-    "launches": {"warp": warp.warp_kernel.launches, "deform": deform.deform_kernel.launches},
+    "launches": chip_smoke.read_launches(),
     "free_gib_at_start": free0 / 2**30,
     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     "num_ooms": torch.cuda.memory_stats().get("num_ooms", 0),
@@ -2114,7 +2206,7 @@ def train_cli(torch, logged: dict, tmp: str) -> list[dict]:
         raise AssertionError(f"train CLI failed:\n{proc.stderr[-4000:]}")
     lines = proc.stdout.strip().splitlines()
     shapes = json.loads(lines[-1])
-    for k in ("warp", "deform"):
+    for k in logged:
         logged[k].update(tuple(v) for v in shapes[k])
     done = [json.loads(line) for line in lines if line.startswith('{"wall_s"')]
     if len(done) != len(runs):
@@ -2566,7 +2658,8 @@ cli = importlib.import_module("tpuvc_torch.cli." + name)
 device = jobs[0]["argv"][jobs[0]["argv"].index("--device") + 1]
 mesh = make_mesh(backend="gloo", device=device)
 cuda = mesh.device.type == "cuda"
-logged = chip_smoke.log_launches() if cuda else {"warp": set(), "deform": set()}
+logged = chip_smoke.log_launches() if cuda else {"warp": set(), "deform": set(),
+                                                 "epilogue": set()}
 for job in jobs:
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -2683,7 +2776,7 @@ def mesh_sequence_cli(torch, logged: dict, tmp: str, device: str = "cuda") -> li
         enc_s, dec_s = cli_seconds(enc[0]["log"], "wrote"), cli_seconds(dec[0]["log"], "decoded")
         bit_exact = all(r["sha256"] == enc[0]["sha256"] for r in enc + dec)
         for r in enc + dec:
-            for k in ("warp", "deform"):
+            for k in logged:
                 logged[k].update(tuple(v) for v in r["shapes"][k])
         row = {
             "phase": "mesh_sequence_cli", "path": path, "family": family,
@@ -2740,7 +2833,8 @@ out_dir, argv = sys.argv[1], sys.argv[2:]
 device = argv[argv.index("--device") + 1]
 mesh = make_mesh(backend="gloo", device=device)
 cuda = mesh.device.type == "cuda"
-logged = chip_smoke.log_launches() if cuda else {"warp": set(), "deform": set()}
+logged = chip_smoke.log_launches() if cuda else {"warp": set(), "deform": set(),
+                                                 "epilogue": set()}
 kv = dict(a.split("=", 1) for a in argv if "=" in a and not a.startswith("--"))
 out = {"rank": mesh.rank, "step0": chip_smoke.mesh_step0_gradients(
     torch, mesh, int(kv["batch_size"]), int(kv["crop"]), int(kv.get("model.N", 128)))}
@@ -2823,7 +2917,7 @@ def mesh_train_cli(torch, logged: dict, tmp: str, device: str = "cuda",
     wall_s = time.perf_counter() - t0
     ranks = _rank_rows(out_dir, "train", 2)
     for r in ranks:
-        for k in ("warp", "deform"):
+        for k in logged:
             logged[k].update(tuple(v) for v in r["shapes"][k])
     s, step0 = ranks[0]["summary"], ranks[0]["step0"]
     digests = s["rank_params_sha256"]
@@ -3104,7 +3198,8 @@ cuda = mesh.device.type == "cuda"
 if cuda:
     set_deterministic()
     chip_smoke.cap_device_memory(torch, chip_smoke.SPATIAL_MEM_GIB)
-logged = chip_smoke.log_launches() if cuda else {"warp": set(), "deform": set()}
+logged = chip_smoke.log_launches() if cuda else {"warp": set(), "deform": set(),
+                                                 "epilogue": set()}
 for family in chip_smoke.SPATIAL_FAMILIES:
     model, frames = chip_smoke.spatial_inputs(torch, mesh.device, frame, family)
     latents = chip_smoke.latent_hooks(model, family)
@@ -3389,11 +3484,78 @@ def pmf_native_check() -> dict:
     return row
 
 
+def epilogue_simple(torch, y, bias=None, act=None, slope=0.01, residual=None):
+    """The simplest rewrite of the conv epilogue in PyTorch ops that keeps
+    its bits, as a yardstick: one promoting add (bf16 + f32 bias), then the
+    residual and the activation in place."""
+    import torch.nn.functional as F
+
+    out = y.permute(0, 2, 3, 1)
+    out = out.float() if bias is None else out + bias
+    if residual is not None:
+        out.add_(residual)
+    if act == "relu":
+        out.relu_()
+    elif act == "leaky_relu":
+        F.leaky_relu_(out, slope)
+    return out
+
+
+def epilogue_check(torch) -> list[dict]:
+    """The epilogue kernel against epilogue_plain at EPILOGUE_SHAPES (the
+    conv output in cuDNN's channels-last memory, seeded): bit for bit;
+    kernel, plain-ops and :func:`epilogue_simple` times, and the byte bound
+    (the conv output read once, the float32 result written once, a residual
+    read once)."""
+    from tpuvc_torch.ops import epilogue as E
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    with torch.no_grad():
+        for name, (B, H, W, C), dt, act, slope, res, has_bias in EPILOGUE_SHAPES:
+            dtype = getattr(torch, dt)
+            y = torch.randn((B, H, W, C), generator=gen, device="cuda").to(dtype)
+            y = y.permute(0, 3, 1, 2)
+            bias = torch.randn(C, generator=gen, device="cuda") if has_bias else None
+            r = torch.randn((B, H, W, C), generator=gen, device="cuda") if res else None
+            args = (y, bias, act, slope, r)
+            before = E.epilogue_kernel.launches
+            out_k = E.epilogue(*args)
+            launched = E.epilogue_kernel.launches - before
+            out_p = E.epilogue_plain(*args)
+            out_s = epilogue_simple(torch, *args)
+            torch.cuda.synchronize()
+            bit_exact = bool(torch.equal(out_k.view(torch.int32), out_p.view(torch.int32)))
+            simple_bit_exact = bool(torch.equal(out_s.view(torch.int32),
+                                                out_p.view(torch.int32)))
+            del out_k, out_p, out_s
+            n = B * H * W * C
+            nbytes = n * y.element_size() + 4 * n + (4 * n if res else 0)
+            iters = max(3, min(50, int(2e10 // nbytes)))
+            row = {"phase": "epilogue_check", "shape_name": name, "shape": [B, H, W, C],
+                   "dtype": dt, "act": act, "slope": slope, "residual": res,
+                   "bias": has_bias, "launches": launched, "bit_exact": bit_exact,
+                   "max_abs_err": 0.0 if bit_exact else None,
+                   "ms": time_ms(torch, lambda: E.epilogue(*args), iters),
+                   "plain_ms": time_ms(torch, lambda: E.epilogue_plain(*args), iters),
+                   "simple_ms": time_ms(torch, lambda: epilogue_simple(torch, *args), iters),
+                   "simple_bit_exact": simple_bit_exact,
+                   "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
+            emit(row)
+            rows.append(row)
+            del y, bias, r, args
+            torch.cuda.empty_cache()
+    bad = [r for r in rows if not (r["bit_exact"] and r["launches"] == 1)]
+    if bad:
+        raise AssertionError(f"epilogue kernel differs from epilogue_plain: {bad}")
+    return rows
+
+
 def build_kernels() -> dict:
     """Build the CUDA kernels (one nvcc each, all started together) and the
     rANS library; returns the seconds each took."""
     from tpuvc_torch.coder import rans
-    from tpuvc_torch.ops import deform, warp
+    from tpuvc_torch.ops import deform, epilogue, warp
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -3401,7 +3563,7 @@ def build_kernels() -> dict:
         return time.perf_counter() - t0
 
     builds = {"warp_s": warp.build_kernel, "deform_s": deform.build_kernel,
-              "rans_s": rans.build}
+              "epilogue_s": epilogue.build_kernel, "rans_s": rans.build}
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         futs = {k: pool.submit(timed, fn) for k, fn in builds.items()}
         return {k: f.result() for k, f in futs.items()}
@@ -3438,6 +3600,8 @@ def main() -> int:
         pmf_native_check()
     with phase("deform_check", 360):
         deform_rows = deform_check(torch)
+    with phase("epilogue_check", 180):
+        epilogue_rows = epilogue_check(torch)
     with phase("train_kernel_check", 240):
         train_krows = train_kernel_check(torch)
     with phase("reference_check", 120):
@@ -3509,8 +3673,8 @@ def main() -> int:
         adaptive = adaptive_ratios(torch)
     with phase("bench_torch", 480):
         bench = bench_torch_run(torch)
-    with phase("path_shapes_check", 180):
-        path_rows = path_shapes_check(torch, logged, warp_rows, deform_rows)
+    with phase("path_shapes_check", 360):
+        path_rows = path_shapes_check(torch, logged, warp_rows, deform_rows, epilogue_rows)
 
     def by_path(kernel):
         paths = {"lhbdc": lhbdc["launches"][kernel], "flowguided_b": v4["launches"][kernel],
@@ -3598,6 +3762,23 @@ def main() -> int:
             "shape", "x_shape", "fwd_ms", "fwd_bwd_ms", "fwd_bwd_ms_with_atomics",
             "bwd_repeat_bit_identical", "plain_fwd_bwd_ms", "library_fwd_bwd_ms", "bound_ms",
             "bound_by", "bwd_bound_ms", "bwd_bound_by")}
+    # The epilogue: no TPU kernel to replace (XLA fused the conv's epilogue);
+    # its headline is SPyNet's conv1 at batch 8.
+    epilogue_head = epilogue_rows[0]
+    launches = by_path("epilogue")
+    shape_keys = ("shape_name", "shape", "dtype", "act", "residual", "ms", "plain_ms",
+                  "simple_ms", "simple_bit_exact", "bound_ms")
+    kernels.append({
+        "name": "epilogue", "route": "cuda", "source": "tpuvc_torch/csrc/epilogue.cu",
+        "replaces": "none", "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in epilogue_rows + path_rows
+                           if r.get("kernel", "epilogue") == "epilogue"),
+        "ms": epilogue_head["ms"], "plain_ms": epilogue_head["plain_ms"],
+        "simple_ms": epilogue_head["simple_ms"], "bound_ms": epilogue_head["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "shape": epilogue_head["shape"],
+        "rows": [{k: r[k] for k in shape_keys} for r in epilogue_rows],
+    })
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

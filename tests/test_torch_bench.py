@@ -47,7 +47,8 @@ def test_bench_torch_prints_bench_py_record_on_cpu():
     assert record["eval_fps"] > 0 and record["compute_dtype"] == "bfloat16"
     assert record["frame"] == [64, 64] and record["device"] == "cpu"
     # CPU tensors never launch a kernel: the counts of both timed phases are 0
-    assert record["launches"] == record["eval_launches"] == {"warp": 0, "deform": 0}
+    assert record["launches"] == record["eval_launches"] == {"warp": 0, "deform": 0,
+                                                             "epilogue": 0}
     # every earlier record has the same keys, with fewer windows or no eval
     for line in lines[1:-1]:
         assert keys <= set(line) and line["measured_windows"] <= record["measured_windows"]

@@ -1089,7 +1089,9 @@ def test_spatial_flowguided_forward_over_2_ranks_on_card(cuda, tmp_path):
     for r, out in enumerate(ranks):
         torch.testing.assert_close(out["x_hat"], ref["x_hat"].cpu(), rtol=0, atol=2e-4)
         torch.testing.assert_close(out["sizes"], ref["sizes"].cpu(), rtol=2e-4, atol=0)
-        assert out["launches"] == {"warp": 6, "deform": 3}
+        launches = dict(out["launches"])
+        assert launches.pop("epilogue") > 0  # the conv windows' epilogues
+        assert launches == {"warp": 6, "deform": 3}
         assert len(out["warps"]) == 6 and len(out["deforms"]) == 3
         for w in out["warps"] + out["deforms"]:
             assert w[0] == rows_of(w[2], 2, r)[0]

@@ -45,7 +45,8 @@ def test_train_cli_two_steps_then_resume(family, tmp_path):
     assert first["steps"] == 2 and first["start_step"] == 0
     assert all(math.isfinite(v) for v in first["metrics"].values()), first
     assert {"loss", "rate", "mse", "aux"} <= set(first["metrics"])
-    assert first["launches"] == {"warp": 0, "deform": 0}  # plain versions on the CPU
+    # plain versions on the CPU
+    assert first["launches"] == {"warp": 0, "deform": 0, "epilogue": 0}
 
     ck = load_checkpoint(str(tmp_path / "latest.msgpack"))
     assert int(ck["step"]) == 2

@@ -343,7 +343,7 @@ def _train_on(cfg, device, log, mesh=None) -> dict:
     import torch
 
     from tpuvc_torch.data.vimeo import SyntheticSeptuplets, VimeoSeptuplets, make_batch_iterator
-    from tpuvc_torch.ops import deform, warp
+    from tpuvc_torch.ops import deform, epilogue, warp
     from tpuvc_torch.ops.precision import policy_from_name
     from tpuvc_torch.parallel.mesh import all_gather_objects, replicate, shard_batch
     from tpuvc_torch.train.trainer import data_parallel, make_optimizer
@@ -410,7 +410,8 @@ def _train_on(cfg, device, log, mesh=None) -> dict:
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    launches0 = (warp.warp_kernel.launches, deform.deform_kernel.launches)
+    launches0 = (warp.warp_kernel.launches, deform.deform_kernel.launches,
+                 epilogue.epilogue_kernel.launches)
     step_s, coded_frames, metrics, validations = [], [], {}, 0
     t0 = time.perf_counter()
     for it in range(start_step, cfg.total_steps):
@@ -454,7 +455,8 @@ def _train_on(cfg, device, log, mesh=None) -> dict:
         "metrics": {k: float(v) for k, v in metrics.items()},
         "skipped_nonfinite": opt_state.total_notfinite,
         "launches": {"warp": warp.warp_kernel.launches - launches0[0],
-                     "deform": deform.deform_kernel.launches - launches0[1]},
+                     "deform": deform.deform_kernel.launches - launches0[1],
+                     "epilogue": epilogue.epilogue_kernel.launches - launches0[2]},
         "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                          if device.type == "cuda" else None),
         "validations": validations,

@@ -25,14 +25,13 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tpuvc_torch import obs
 from tpuvc_torch.entropy.bottleneck import FactorizedBottleneck, FactorizedTables
 from tpuvc_torch.entropy.gaussian import GaussianConditional
 from tpuvc_torch.entropy.quant import quantize, ste_round
-from tpuvc_torch.models.layers import Conv, Deconv, ResidualBottleneckBlock, leaky_relu
+from tpuvc_torch.models.layers import Conv, Deconv, ResidualBottleneckBlock
 from tpuvc_torch.models.ms_feature import _ConvRBB, _named
 from tpuvc_torch.ops.checkerboard import (
     CheckerboardConv,
@@ -86,8 +85,8 @@ class _EntropyParams(nn.Module):
         self.Conv_2 = Conv(M * 8 // 3, out_channels, kernel=1)
 
     def forward(self, x):
-        x = leaky_relu(self.Conv_0(x))
-        x = leaky_relu(self.Conv_1(x))
+        x = self.Conv_0(x, "leaky_relu")
+        x = self.Conv_1(x, "leaky_relu")
         return self.Conv_2(x)
 
 
@@ -99,8 +98,8 @@ class _ChannelContext(nn.Module):
         self.Conv_2 = Conv(N, M * 2, kernel=5)
 
     def forward(self, x):
-        x = F.relu(self.Conv_0(x))
-        x = F.relu(self.Conv_1(x))
+        x = self.Conv_0(x, "relu")
+        x = self.Conv_1(x, "relu")
         return self.Conv_2(x)
 
 
@@ -207,7 +206,7 @@ class CondELIC(nn.Module):
         y = self.g_a2(torch.cat([y, c2], dim=-1))
         y = self.g_a3(torch.cat([y, c3], dim=-1))
         y = y * gain
-        z = self.h_a3(F.relu(self.h_a2(F.relu(self.h_a1(y)))))
+        z = self.h_a3(self.h_a2(self.h_a1(y, "relu"), "relu"))
         return y, z * hypergain
 
     @obs.stage
@@ -215,7 +214,7 @@ class CondELIC(nn.Module):
         """h_s on the inverse-gained z_hat, fused with the temporal condition."""
         _, _, invhypergain, _ = self.interpolate_gain(s)
         z_hat = z_hat * invhypergain
-        h = self.h_s3(F.relu(self.h_s2(F.relu(self.h_s1(z_hat)))))
+        h = self.h_s3(self.h_s2(self.h_s1(z_hat, "relu"), "relu"))
         x = self.prior_fusion_in(torch.cat([h, temporal_cond], dim=-1))
         for blk in self.prior_fusion_blocks:
             x = blk(x)

@@ -28,7 +28,6 @@ import contextlib
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tpuvc_torch import resolve_device
@@ -42,7 +41,6 @@ from tpuvc_torch.models.layers import (
     ResidualBottleneckBlock,
     SubpelConv,
     init_weights,
-    leaky_relu,
 )
 from tpuvc_torch.models.spynet import SPyNet
 from tpuvc_torch.ops.pad import pad_to_multiple, unpad
@@ -145,7 +143,7 @@ class _FourPartCoder(nn.Module):
     def hyper_analysis(self, y, q=0.0):
         """(gained y, z): the encoder-side analysis."""
         y = y * self._interp(self.gain, q)
-        z = self.h_a3(F.relu(self.h_a2(F.relu(self.h_a1(y)))))
+        z = self.h_a3(self.h_a2(self.h_a1(y, "relu"), "relu"))
         return y, z
 
     def fused_params(self, z_hat, ctx):
@@ -153,11 +151,11 @@ class _FourPartCoder(nn.Module):
 
         ctx: the previous frame's decoded latent (B, h, w, N), or None (the
         first P-frame after an I-frame: a zero temporal prior)."""
-        p = self.h_s3(F.relu(self.h_s2(F.relu(self.h_s1(z_hat)))))
+        p = self.h_s3(self.h_s2(self.h_s1(z_hat, "relu"), "relu"))
         if ctx is None:
             ctx = torch.zeros(p.shape[:3] + (self.N,), dtype=p.dtype, device=p.device)
-        t = self.t_prior2(F.relu(self.t_prior1(ctx)))
-        return self.fusion2(F.relu(self.fusion1(torch.cat([p, t], dim=-1))))
+        t = self.t_prior2(self.t_prior1(ctx, "relu"))
+        return self.fusion2(self.fusion1(torch.cat([p, t], dim=-1), "relu"))
 
     def part_params(self, params0, y_hat, k: int):
         """Entropy parameters for part k: the fused params for part 0, an
@@ -290,13 +288,13 @@ class PFrameDMC(nn.Module):
         y = self._mv_feat(mv_scaled, ref_mv_feature)
         n = len(self.mv_g_a)
         for i, layer in enumerate(self.mv_g_a):
-            y = layer(y) if i == n - 1 else leaky_relu(layer(y))
+            y = layer(y, None if i == n - 1 else "leaky_relu")
         return y
 
     def _mv_decode(self, x):
         """mv synthesis after the inverse gain -> (mv, mv_feature)."""
         for layer in self.mv_g_s:
-            x = leaky_relu(layer(x))
+            x = layer(x, "leaky_relu")
         return self.mv_out(x), x
 
     def code_mv(self, mv_scaled, ref_mv_feature, ref_mv_y, mode, generator=None, q=0.0):

@@ -16,7 +16,6 @@ agree.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tpuvc_torch import resolve_device
@@ -100,11 +99,11 @@ class ELIC(nn.Module):
 
     def h_a(self, y):
         a0, a1, a2 = self.h_a_layers
-        return a2(F.relu(a1(F.relu(a0(y)))))
+        return a2(a1(a0(y, "relu"), "relu"))
 
     def h_s(self, z_hat):
         s0, s1, s2 = self.h_s_layers
-        return s2(F.relu(s1(F.relu(s0(z_hat)))))
+        return s2(s1(s0(z_hat, "relu"), "relu"))
 
     def analysis(self, x):
         y = self.g_a(x)

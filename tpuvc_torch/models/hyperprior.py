@@ -26,7 +26,6 @@ from tpuvc_torch.models.layers import (
     ResidualBlockUpsample,
     ResidualBlockWithStride,
     SubpelConv,
-    leaky_relu,
 )
 
 
@@ -83,16 +82,14 @@ class MeanScaleHyperprior(nn.Module):
         x = y
         n = len(self.h_a_convs)
         for i, c in enumerate(self.h_a_convs):
-            x = c(x)
-            if i < n - 1:
-                x = leaky_relu(x)
+            x = c(x, "leaky_relu" if i < n - 1 else None)
         return x
 
     def h_s(self, z_hat):
-        x = leaky_relu(self.h_s_conv0(z_hat))
-        x = leaky_relu(self.h_s_up0(x))
-        x = leaky_relu(self.h_s_conv1(x))
-        x = leaky_relu(self.h_s_up1(x))
+        x = self.h_s_conv0(z_hat, "leaky_relu")
+        x = self.h_s_up0(x, "leaky_relu")
+        x = self.h_s_conv1(x, "leaky_relu")
+        x = self.h_s_up1(x, "leaky_relu")
         return self.h_s_out(x)
 
     def g_s(self, y_hat):

@@ -11,6 +11,11 @@ joining it with dots (tpuvc_torch.utils.convert).
 Under the bfloat16 policy (tpuvc_torch.ops.precision) convolutions and GDN's
 channel mixing take bfloat16 operands; their outputs, biases and everything
 between layers stay float32.
+
+A conv's output cast, its bias and the activation its caller applies next
+(``act=``; a residual add where the module's order is conv, bias, residual)
+are one pass, ``ops.epilogue.epilogue``: a hand-written kernel on a card
+while autograd does not record, the same ops one by one otherwise.
 """
 
 from __future__ import annotations
@@ -19,11 +24,11 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tpuvc_torch.entropy.emath import lower_bound
 from tpuvc_torch.ops import precision
+from tpuvc_torch.ops.epilogue import epilogue, leaky_relu  # noqa: F401 (re-exported)
 from tpuvc_torch.ops.resample import pixel_shuffle
 
 #: flax's truncated normal is cut at two standard deviations; this is the
@@ -43,9 +48,11 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator | None = None):
     return w
 
 
-def conv2d_nhwc(x, weight, bias, stride: int = 1, padding: int = 0):
+def conv2d_nhwc(x, weight, bias, stride: int = 1, padding: int = 0, act=None,
+                slope: float = 0.01, residual=None):
     """NHWC conv with OIHW weights under the compute-dtype policy; output
-    and bias add in float32.
+    and bias add in float32, then ``+ residual`` and the activation ``act``
+    (``ops.epilogue``), all in the conv's epilogue.
 
     While autograd records a CPU conv, the input goes in as a contiguous
     NCHW copy: oneDNN's backward of a strided conv on the channels-last view
@@ -60,7 +67,7 @@ def conv2d_nhwc(x, weight, bias, stride: int = 1, padding: int = 0):
             x.requires_grad or weight.requires_grad):
         xin = xin.contiguous()
     y = precision.conv(xin, weight, stride=stride, padding=padding)
-    return y.permute(0, 2, 3, 1).float() + bias
+    return epilogue(y, bias, act, slope, residual)
 
 
 class Conv(nn.Module):
@@ -89,8 +96,11 @@ class Conv(nn.Module):
             lecun_normal_(self.weight, generator)
         self.bias.zero_()
 
-    def forward(self, x):
-        return conv2d_nhwc(x, self.weight, self.bias, self.stride, self.kernel // 2)
+    def forward(self, x, act=None, slope: float = 0.01, residual=None):
+        """``act(conv(x) + bias + residual)``; ``act`` None, ``"relu"`` or
+        ``"leaky_relu"`` (``slope``)."""
+        return conv2d_nhwc(x, self.weight, self.bias, self.stride, self.kernel // 2,
+                           act, slope, residual)
 
 
 class Deconv(nn.Module):
@@ -112,7 +122,9 @@ class Deconv(nn.Module):
         lecun_normal_(self.weight.transpose(0, 1), generator)
         self.bias.zero_()
 
-    def forward(self, x):
+    def forward(self, x, act=None):
+        """``act(deconv(x))`` (leaky slope 0.01); the bias inside the conv,
+        in its dtype."""
         dt = precision.compute_dtype()
         w, b = self.weight, self.bias
         xin = x if dt is None else x.to(dt)
@@ -122,7 +134,7 @@ class Deconv(nn.Module):
             xin.permute(0, 3, 1, 2), w, b, stride=self.stride,
             padding=self.kernel // 2, output_padding=self.stride - 1,
         )
-        return y.permute(0, 2, 3, 1).to(x.dtype)
+        return epilogue(y, act=act, dtype=x.dtype)
 
 
 def conv3x3(in_features: int, features: int, stride: int = 1) -> Conv:
@@ -143,8 +155,10 @@ class SubpelConv(nn.Module):
         self.Conv_0 = Conv(in_features, features * r * r, kernel=kernel,
                            zero_init=zero_init)
 
-    def forward(self, x):
-        return pixel_shuffle(self.Conv_0(x), self.r)
+    def forward(self, x, act=None):
+        """``act(shuffle(conv(x)))`` (leaky slope 0.01). An activation
+        commutes with the shuffle: it runs in the conv's epilogue."""
+        return pixel_shuffle(self.Conv_0(x, act), self.r)
 
 
 class GDN(nn.Module):
@@ -187,13 +201,6 @@ class GDN(nn.Module):
         return x * norm if self.inverse else x / norm
 
 
-def leaky_relu(x, slope: float = 0.01):
-    """flax's ``nn.leaky_relu``: ``where(x >= 0, x, slope * x)``. Its
-    gradient at exactly 0 is 1, where ``F.leaky_relu``'s is ``slope``; the
-    values are the same."""
-    return torch.where(x >= 0, x, slope * x)
-
-
 class ResidualBlock(nn.Module):
     """conv3x3 -> lrelu -> conv3x3 -> lrelu, with identity (1x1 if C changes)."""
 
@@ -205,8 +212,8 @@ class ResidualBlock(nn.Module):
             self.Conv_2 = conv1x1(in_features, features)
 
     def forward(self, x):
-        out = leaky_relu(self.Conv_0(x))
-        out = leaky_relu(self.Conv_1(out))
+        out = self.Conv_0(x, "leaky_relu")
+        out = self.Conv_1(out, "leaky_relu")
         identity = self.Conv_2(x) if hasattr(self, "Conv_2") else x
         return out + identity
 
@@ -223,7 +230,7 @@ class ResidualBlockWithStride(nn.Module):
             self.Conv_2 = conv1x1(in_features, features, stride=stride)
 
     def forward(self, x):
-        out = leaky_relu(self.Conv_0(x))
+        out = self.Conv_0(x, "leaky_relu")
         out = self.GDN_0(self.Conv_1(out))
         skip = self.Conv_2(x) if hasattr(self, "Conv_2") else x
         return out + skip
@@ -240,7 +247,7 @@ class ResidualBlockUpsample(nn.Module):
         self.SubpelConv_1 = SubpelConv(in_features, features, r=r)
 
     def forward(self, x):
-        out = leaky_relu(self.SubpelConv_0(x))
+        out = self.SubpelConv_0(x, "leaky_relu")
         out = self.GDN_0(self.Conv_0(out))
         return out + self.SubpelConv_1(x)
 
@@ -255,9 +262,9 @@ class ResidualUnit(nn.Module):
         self.Conv_2 = conv1x1(features // 2, features)
 
     def forward(self, x):
-        out = F.relu(self.Conv_0(x))
-        out = F.relu(self.Conv_1(out))
-        return F.relu(self.Conv_2(out) + x)
+        out = self.Conv_0(x, "relu")
+        out = self.Conv_1(out, "relu")
+        return self.Conv_2(out, "relu", residual=x)
 
 
 class AttentionBlock(nn.Module):
@@ -289,9 +296,9 @@ class ResidualBottleneckBlock(nn.Module):
         self.Conv_2 = conv1x1(features, features)
 
     def forward(self, x):
-        out = F.relu(self.Conv_0(x))
-        out = F.relu(self.Conv_1(out))
-        return self.Conv_2(out) + x
+        out = self.Conv_0(x, "relu")
+        out = self.Conv_1(out, "relu")
+        return self.Conv_2(out, residual=x)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:

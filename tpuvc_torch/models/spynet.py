@@ -14,7 +14,6 @@ from __future__ import annotations
 import functools
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tpuvc_torch import obs
@@ -39,13 +38,13 @@ class BasicBlock(nn.Module):
             setattr(self, f"conv{i}", Conv(cin, co, kernel=7))
             cin = co
 
-    def forward(self, x):
+    def forward(self, x, residual=None):
+        """The five convs, ReLU in each but the last's epilogue, and
+        ``residual`` added in the last's."""
         n = len(self.FEATS)
-        for i in range(n):
-            x = getattr(self, f"conv{i}")(x)
-            if i < n - 1:
-                x = F.relu(x)
-        return x
+        for i in range(n - 1):
+            x = getattr(self, f"conv{i}")(x, "relu")
+        return getattr(self, f"conv{n - 1}")(x, residual=residual)
 
 
 @functools.lru_cache(maxsize=8)
@@ -99,5 +98,5 @@ class SPyNet(nn.Module):
             warped = warp(seconds[level], up, compat=self.warp_compat)
             inp = torch.cat([firsts[level], warped, up], dim=-1)
             block = getattr(self, f"basic_{min(level, self.num_levels - 1)}")
-            flow = block(inp) + up
+            flow = block(inp, residual=up)
         return flow

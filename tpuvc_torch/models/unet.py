@@ -11,7 +11,6 @@
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tpuvc_torch.models.layers import Conv, leaky_relu
@@ -43,19 +42,19 @@ class MaskUNet(nn.Module):
         self.Conv_7 = Conv(ch, 1, kernel=5)
 
     def forward(self, x):
-        c1 = F.relu(self.Conv_0(x))
+        c1 = self.Conv_0(x, "relu")
         x = _maxpool2(c1)
-        c2 = F.relu(self.Conv_1(x))
+        c2 = self.Conv_1(x, "relu")
         x = _maxpool2(c2)
-        c3 = F.relu(self.Conv_2(x))
+        c3 = self.Conv_2(x, "relu")
         x = _maxpool2(c3)
-        x = F.relu(self.Conv_3(x))
+        x = self.Conv_3(x, "relu")
         x = torch.cat([_up2(x), c3], dim=-1)
-        x = F.relu(self.Conv_4(x))
+        x = self.Conv_4(x, "relu")
         x = torch.cat([_up2(x), c2], dim=-1)
-        x = F.relu(self.Conv_5(x))
+        x = self.Conv_5(x, "relu")
         x = torch.cat([_up2(x), c1], dim=-1)
-        x = F.relu(self.Conv_6(x))
+        x = self.Conv_6(x, "relu")
         return torch.sigmoid(self.Conv_7(x))
 
 
@@ -64,8 +63,12 @@ def _avgpool2(x):
     return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
 
 
+#: The UNet's leaky-ReLU slope.
+SLOPE = 0.1
+
+
 def _lrelu(x):
-    return leaky_relu(x, 0.1)
+    return leaky_relu(x, SLOPE)
 
 
 class UNet(nn.Module):
@@ -98,14 +101,14 @@ class UNet(nn.Module):
         convs = iter(getattr(self, f"Conv_{i}") for i in range(self.n_convs))
         skips = []
         for i in range(self.depth):
-            x = _lrelu(next(convs)(x))
-            x = _lrelu(next(convs)(x))
+            x = next(convs)(x, "leaky_relu", SLOPE)
+            x = next(convs)(x, "leaky_relu", SLOPE)
             if i < self.depth - 1:
                 skips.append(x)
                 x = _avgpool2(x)
-        x = _lrelu(next(convs)(x))
+        x = next(convs)(x, "leaky_relu", SLOPE)
         for i in reversed(range(self.depth - 1)):
             x = torch.cat([next(convs)(_up2(x)), skips[i]], dim=-1)
-            x = _lrelu(next(convs)(x))
-            x = _lrelu(next(convs)(x))
+            x = next(convs)(x, "leaky_relu", SLOPE)
+            x = next(convs)(x, "leaky_relu", SLOPE)
         return next(convs)(x)

@@ -155,17 +155,22 @@ def records() -> list:
 
 
 def counters() -> dict:
-    """The counters since the last :func:`reset`, with the two hand
-    kernels' launch counters (``ops.warp``, ``ops.deform``; the deform
-    launches that took its ``<V, MAXO>`` instance apart), which count
-    whether tracing is on or not."""
-    from tpuvc_torch.ops import deform, warp
+    """The counters since the last :func:`reset`, with the hand kernels'
+    launch counters (``ops.warp``, ``ops.deform``, ``ops.epilogue``; the
+    deform launches that took its ``<V, MAXO>`` instance apart, the
+    epilogue launches that applied an activation and those that left the
+    residual add and activation to the plain ops), which count whether
+    tracing is on or not."""
+    from tpuvc_torch.ops import deform, epilogue, warp
 
     with _LOCK:
         out = dict(_COUNTS)
     out["warp.launches"] = warp.warp_kernel.launches
     out["deform.launches"] = deform.deform_kernel.launches
     out["deform.launches.wide"] = deform.deform_kernel.wide_launches
+    out["epilogue.launches"] = epilogue.epilogue_kernel.launches
+    out["epilogue.launches.act"] = epilogue.epilogue_kernel.act_launches
+    out["epilogue.launches.partial"] = epilogue.epilogue_kernel.partial_launches
     return out
 
 
