@@ -198,135 +198,3 @@ def test_gop_window_round_trip_is_bit_exact(coder):
     for f, x in recon.items():
         assert torch.equal(decoded[f], x), f
         assert torch.isfinite(x).all() and x.shape == slot[f].shape
-
-
-def _alternate(*steps):
-    """Drive stepwise decodes strictly in turn (each resumed as soon as the
-    other has yielded, whether its host work is done or not)."""
-    out = [None] * len(steps)
-    live = list(range(len(steps)))
-    while live:
-        for k in list(live):
-            try:
-                next(steps[k])
-            except StopIteration as stop:
-                out[k] = stop.value
-                live.remove(k)
-    return out
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_stepwise_decode_equals_the_blocking_decode(coder, dtype):
-    """One chunk's stepwise decode, driven alone, is decode_level_batch bit
-    for bit, after 2 * (1 + 2 * groups) host round trips."""
-    x1, xc, x2 = (torch.from_numpy(a) for a in _frames(seed=6))
-    with policy_from_name(dtype):
-        bits, x_hat = coder.encode_level_batch(x1, x2, xc, 1.0, 0.5, 0.5)
-        parsed = [_reparse(b) for b in bits]
-        steps = coder.decode_level_batch_steps(x1, x2, parsed)
-        yields = 0
-        while True:
-            try:
-                next(steps).result()
-                yields += 1
-            except StopIteration as stop:
-                stepped = stop.value
-                break
-        blocking = coder.decode_level_batch(x1, x2, parsed)
-    assert yields == 2 * (1 + 2 * 4)
-    assert torch.equal(stepped, blocking)
-    assert torch.equal(stepped, x_hat)
-
-
-@pytest.mark.parametrize("drive", ["run_steps", "alternate"])
-def test_two_chunks_decoded_in_turn_equal_one_after_the_other(coder, drive):
-    """Two chunks of one level, their stepwise decodes interleaved on one
-    thread, give the frames of decoding them one after the other, which
-    are the encoder's."""
-    chunks = []
-    with policy_from_name("bfloat16"):
-        for seed in (7, 8):
-            x1, xc, x2 = (torch.from_numpy(a) for a in _frames(seed=seed))
-            bits, x_hat = coder.encode_level_batch(x1, x2, xc, 1.0, 0.5, -0.5)
-            chunks.append((x1, x2, [_reparse(b) for b in bits], x_hat))
-        one_by_one = [coder.decode_level_batch(x1, x2, bs) for x1, x2, bs, _ in chunks]
-        steps = [coder.decode_level_batch_steps(x1, x2, bs) for x1, x2, bs, _ in chunks]
-        paired = (parallel.run_steps if drive == "run_steps" else _alternate)(*steps)
-    for (_, _, _, x_hat), single, both in zip(chunks, one_by_one, paired):
-        assert torch.equal(both, single)
-        assert torch.equal(both, x_hat)
-
-
-@pytest.fixture(scope="module")
-def v4_stream(coder, tmp_path_factory):
-    """A 9-frame GOP-4 sequence coded level-batched with the module's coder
-    in 2-GOP windows at batch 1: two one-frame chunks at level 0 and four
-    at level 1. -> (stream bytes, ELIC coder, the encoder's frames)."""
-    from tpuvc_torch.cli import encode_v
-
-    path = tmp_path_factory.mktemp("v4_stream") / "seq.tpvb"
-    args = encode_v.build_parser().parse_args([
-        "--family", "flowguided_b", "--level_batched", "--window_gops", "2",
-        "--max_batch", "1", "--s", "1.0", "--synthetic", "9", "--width", "64",
-        "--height", "64", "--gop", "4", "--init", "random", "--intra_N", "16",
-        "--intra_M", "24", "--intra_groups", "4,4,16", "--device", "cpu",
-        "--compute_dtype", "bfloat16", "--bin", str(path),
-    ])
-    intra = encode_v.build_intra(args, torch.device("cpu"))
-    recons = encode_v._encode_level_batched(args, encode_v.load_frames(args), coder, intra,
-                                            torch.device("cpu"))
-    return path.read_bytes(), intra, recons
-
-
-class _WholeShard:
-    """A one-rank level-batch sharder: every row is this rank's."""
-
-    def __init__(self):
-        self.calls = 0
-
-    def __call__(self, x, b=None):
-        self.calls += 1
-        return x
-
-    def gather(self, x, b):
-        return x
-
-
-def _decode_stream(blob, coder, intra):
-    """decode_v's level-batched decode of ``blob``, traced: -> (frames,
-    counters)."""
-    from tpuvc_torch import obs
-    from tpuvc_torch.cli import decode_v
-    from tpuvc_torch.coder.container import VSequenceBitstream
-
-    seq = VSequenceBitstream.deserialize(blob)
-    obs.reset()
-    obs.enable()
-    try:
-        with policy_from_name("bfloat16"):
-            decoded = decode_v._decode_level_batched(seq, coder, intra, VFrameBitstream)
-        return {i: x[:64, :64] for i, x in decoded.items()}, obs.counters()
-    finally:
-        obs.disable()
-        obs.reset()
-
-
-@pytest.mark.parametrize("sharded", [False, True])
-def test_level_batched_decode_pairs_unsharded_chunks(coder, v4_stream, sharded):
-    """decode_v pairs each chunk with the next of its window and level (here
-    all six), and decodes them bit-exactly; with the coder sharded over a
-    mesh it keeps the blocking decode, chunk by chunk, and pairs none."""
-    blob, intra, recons = v4_stream
-    shard = _WholeShard() if sharded else None
-    coder.set_shard(shard)
-    try:
-        decoded, counters = _decode_stream(blob, coder, intra)
-    finally:
-        coder.set_shard(None)
-    assert sorted(decoded) == sorted(recons) == list(range(9))
-    for i, x in recons.items():
-        assert torch.equal(decoded[i], x), i
-    assert counters["decode.chunks"] == 6
-    assert counters.get("decode.paired_chunks", 0) == (0 if sharded else 6)
-    if sharded:
-        assert shard.calls == 6 * 3  # each chunk's references and streams

@@ -177,13 +177,14 @@ def _decode_level_batched(seq, coder, intra_coder, frame_cls) -> dict:
             decoded_host[idx] = to_host(dec[j])
 
     groups = _regroup(seq, level_of)
-    # LHBDC's and Flex-Rate's entropy decode needs no references: a B
-    # chunk's rANS and entropy parameters are submitted up to `lookahead`
-    # chunks ahead on workers while the device tail of earlier chunks runs.
-    # v3's and v4's conditional bottlenecks need the references for their
-    # entropy parameters, so they decode chunk by chunk; where the coder has
-    # a stepwise decode and codes unsharded, two chunks of one window and
-    # level whose references are all decoded run in turn.
+    # The two coder bodies of models.bframe_coder decode differently. The
+    # hyperprior pair (LHBDC, Flex-Rate) needs no references for its entropy
+    # decode: a B chunk's rANS and entropy parameters are submitted up to
+    # `lookahead` chunks ahead on workers while the device tail of earlier
+    # chunks runs. The conditional pair (FlowGuidedB, DeformB) needs the
+    # references for its entropy parameters, so it decodes chunk by chunk;
+    # where it codes unsharded, two chunks of one window and level whose
+    # references are all decoded run in turn through its stepwise decode.
     pipelined = hasattr(coder, "decode_level_batch_async")
     stepwise = (hasattr(coder, "decode_level_batch_steps")
                 and getattr(coder, "shard", None) is None)

@@ -21,15 +21,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tpuvc_torch import obs, resolve_device
+from tpuvc_torch import obs
 from tpuvc_torch.coder.container import VFrameBitstream
 from tpuvc_torch.entropy.emath import likelihood_to_bits, per_sample_bits
-from tpuvc_torch.models.cond_elic import CondELIC, CondELICCoder
+from tpuvc_torch.models.bframe_coder import CondPairCoder
+from tpuvc_torch.models.cond_elic import CondELIC
 from tpuvc_torch.models.layers import init_weights
 from tpuvc_torch.models.ms_feature import MSFeature, ReconstructorDeconv, TemporalEnc
 from tpuvc_torch.ops.deform import DeformConv
-from tpuvc_torch.ops.precision import set_deterministic
-from tpuvc_torch.parallel.mesh import sharded_level_decode, sharded_level_encode
 
 #: Each reference's head: 144 offset channels (8 groups x 9 taps x (dy, dx))
 #: then 72 mask logits.
@@ -143,41 +142,17 @@ class DeformB(nn.Module):
         return self.offset_compressor.aux_loss() + self.residual_compressor.aux_loss()
 
 
-class DeformBCoder:
-    """Real-bitstream encode/decode for the v3 codec.
+class DeformBCoder(CondPairCoder):
+    """Real-bitstream encode/decode for the v3 codec
+    (:class:`~tpuvc_torch.models.bframe_coder.CondPairCoder`).
 
     The decoder recomputes the reference features and temporal priors from
-    the reconstructed references, and both conditional bottlenecks code
-    through CondELICCoder; encoder and decoder run the same functions at the
-    same batch shapes under the same dtype policy, with deterministic CUDA
-    kernels (:func:`set_deterministic`; the deform kernel uses no atomics).
-    Each frame's stream is a VFrameBitstream (down ratio 1, both temporal
-    scales 0): the offset coder's 1 + 2 * len(groups) streams, then the
-    residual coder's.
+    the reconstructed references (the deform kernel uses no atomics). v3
+    has no temporal geometry: each header has down ratio 1 and both
+    temporal scales 0.
 
-    ``device`` defaults to ``cuda``; the model moves there. Inputs are NHWC
-    float32 frames whose sides divide by 16.
+    Inputs are NHWC float32 frames whose sides divide by 16.
     """
-
-    def __init__(self, model: DeformB, device=None):
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            set_deterministic(self.device)
-        self.model = model.to(self.device).eval()
-        self.offset_coder = CondELICCoder(self.model.offset_compressor)
-        self.res_coder = CondELICCoder(self.model.residual_compressor)
-        self.shard = None  # see set_shard
-
-    def set_shard(self, shard) -> None:
-        """Shard level-batched coding over a mesh, as
-        :meth:`tpuvc_torch.models.lhbdc.LHBDCCoder.set_shard` describes."""
-        self.shard = shard
-
-    def _to(self, *xs):
-        return [x.to(self.device) for x in xs]
-
-    def _streams_split(self):
-        return 1 + 2 * len(self.model.groups)
 
     @staticmethod
     def _header(s, z_shape, streams):
@@ -186,106 +161,12 @@ class DeformBCoder:
             scale2_centi=0, z_shape=tuple(z_shape), streams=list(streams),
         )
 
-    def _front(self, xref1, xref2, xcur):
-        m = self.model
-        cond, offset_temp, fref1, fref2 = m.decoder_context(xref1, xref2)
-        fcur = m.features(xcur)
-        inputs = tuple(torch.cat([c, f], dim=-1) for c, f in zip(cond, fcur))
-        return cond, offset_temp, fref1, fref2, fcur, inputs
-
-    def _res_inputs(self, fcur, x_comp):
-        return tuple(torch.cat([f, xc], dim=-1) for f, xc in zip(fcur, x_comp))
-
-    def _recon(self, x_comp, residues):
-        return self.model.reconstruct(*(xc + r for xc, r in zip(x_comp, residues)))
-
-    def encode(self, xref1, xref2, xcur, s):
-        return self.encode_recon(xref1, xref2, xcur, s)[0]
-
-    @torch.no_grad()
     def encode_recon(self, xref1, xref2, xcur, s):
         """Encode (the whole batch in one stream set) and return
-        (VFrameBitstream, decoder-identical reconstruction): both
-        bottlenecks synthesise from their quantized latents, so neither
-        stream is decoded again."""
-        xref1, xref2, xcur = self._to(xref1, xref2, xcur)
-        m = self.model
-        cond, offset_temp, fref1, fref2, fcur, inputs = self._front(xref1, xref2, xcur)
-        off = self.offset_coder.compress(inputs, cond, offset_temp, s)
-        x_comp = m.fuse_offsets(off["outs"], fref1, fref2)
-        res = self.res_coder.compress(self._res_inputs(fcur, x_comp), x_comp,
-                                      m.residual_cond(x_comp), s, x_pixel=xcur)
-        bits = self._header(s, off["z_shape"], off["streams"] + res["streams"])
-        return bits, self._recon(x_comp, res["outs"])
+        (VFrameBitstream, decoder-identical reconstruction)."""
+        return self._encode_recon(xref1, xref2, xcur, s, ())
 
-    @sharded_level_encode
-    @torch.no_grad()
     def encode_level_batch_async(self, xref1, xref2, xcur, s):
-        """Batched real coding of one hierarchy level with deferred host
-        phases: the device work is issued now, and ``resolve()`` returns the
-        per-frame VFrameBitstreams when the workers finish. Returns
-        (resolve, x_hat (B, ...))."""
-        xref1, xref2, xcur = self._to(xref1, xref2, xcur)
-        m = self.model
-        cond, offset_temp, fref1, fref2, fcur, inputs = self._front(xref1, xref2, xcur)
-        off = self.offset_coder.compress_batch_async(inputs, cond, offset_temp, s)
-        x_comp = m.fuse_offsets(off["outs"], fref1, fref2)
-        res = self.res_coder.compress_batch_async(
-            self._res_inputs(fcur, x_comp), x_comp, m.residual_cond(x_comp), s, x_pixel=xcur
-        )
-        x_hat = self._recon(x_comp, res["outs"])
-        # Keep only the resolvers and metadata: the device tensors of this
-        # chunk need not outlive the call.
-        off_resolve, res_resolve = off["streams_resolve"], res["streams_resolve"]
-        z_shape, batch = off["z_shape"], xcur.shape[0]
-
-        def resolve():
-            off_streams, res_streams = off_resolve(), res_resolve()
-            return [self._header(s, z_shape, off_streams[b] + res_streams[b])
-                    for b in range(batch)]
-
-        return resolve, x_hat
-
-    def encode_level_batch(self, xref1, xref2, xcur, s):
-        """Blocking variant: ([VFrameBitstream] * B, x_hat (B, ...))."""
-        resolve, x_hat = self.encode_level_batch_async(xref1, xref2, xcur, s)
-        return resolve(), x_hat
-
-    @sharded_level_decode
-    @torch.no_grad()
-    def decode_level_batch(self, xref1, xref2, bitstreams):
-        """Inverse of encode_level_batch (the encoder's batch shapes)."""
-        xref1, xref2 = self._to(xref1, xref2)
-        m = self.model
-        b0 = bitstreams[0]
-        s = b0.s_milli / 1000.0
-        n = self._streams_split()
-        cond, offset_temp, fref1, fref2 = m.decoder_context(xref1, xref2)
-        heads = self.offset_coder.decompress_batch(
-            [list(b.streams[:n]) for b in bitstreams], b0.z_shape, cond, offset_temp, s
-        )
-        x_comp = m.fuse_offsets(heads, fref1, fref2)
-        residues = self.res_coder.decompress_batch(
-            [list(b.streams[n:]) for b in bitstreams], b0.z_shape, x_comp,
-            m.residual_cond(x_comp), s,
-        )
-        return self._recon(x_comp, residues)
-
-    @torch.no_grad()
-    def decode(self, xref1, xref2, bitstream: VFrameBitstream):
-        """Inverse of encode (one stream set for the batch)."""
-        xref1, xref2 = self._to(xref1, xref2)
-        m = self.model
-        batch = xref1.shape[0]
-        s = bitstream.s_milli / 1000.0
-        n = self._streams_split()
-        cond, offset_temp, fref1, fref2 = m.decoder_context(xref1, xref2)
-        heads = self.offset_coder.decompress(
-            bitstream.streams[:n], bitstream.z_shape, cond, offset_temp, s, batch
-        )
-        x_comp = m.fuse_offsets(heads, fref1, fref2)
-        residues = self.res_coder.decompress(
-            bitstream.streams[n:], bitstream.z_shape, x_comp, m.residual_cond(x_comp),
-            s, batch,
-        )
-        return self._recon(x_comp, residues)
+        """:meth:`CondPairCoder._encode_level_batch_async`: (resolve, x_hat
+        (B, ...))."""
+        return self._encode_level_batch_async(xref1, xref2, xcur, s, ())

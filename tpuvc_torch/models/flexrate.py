@@ -26,15 +26,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpuvc_torch import resolve_device
-from tpuvc_torch.coder.container import BFrameBitstream
 from tpuvc_torch.entropy.emath import per_sample_bits
+from tpuvc_torch.models.bframe_coder import HyperpriorPairCoder
 from tpuvc_torch.models.hyperprior import HyperpriorCoder, MeanScaleHyperprior
 from tpuvc_torch.models.layers import init_weights
 from tpuvc_torch.models.unet import UNet
-from tpuvc_torch.ops.precision import set_deterministic
 from tpuvc_torch.ops.warp import warp
-from tpuvc_torch.parallel.mesh import sharded_level_decode_async, sharded_level_encode
 
 #: tpuvc's ``flexrate._per_sample_bits``: bits per sample, summed over H, W, C.
 _per_sample_bits = per_sample_bits
@@ -219,36 +216,23 @@ class GainedHyperpriorCoder(HyperpriorCoder):
         return self.module.gained_synthesis(y_hat, n, l)
 
 
-class FlexRateCoder:
-    """Real-bitstream encode/decode for the Flex-Rate codec at a rate (n, l).
+class FlexRateCoder(HyperpriorPairCoder):
+    """Real-bitstream encode/decode for the Flex-Rate codec at a rate (n, l)
+    (:class:`~tpuvc_torch.models.bframe_coder.HyperpriorPairCoder`).
 
     The decoder re-runs the flow prediction on the reconstructed references,
-    decodes the refinement, compensates and adds the decoded residual; the
-    encoder reconstructs through the same functions at the same batch
-    shapes, with deterministic CUDA kernels (:func:`set_deterministic`; the
-    warp kernel uses no atomics). Each frame's stream is a BFrameBitstream
+    decodes the refinement, compensates and adds the decoded residual (the
+    warp kernel uses no atomics). ``flow_coder``, the refinement's coder, is
+    the shared body's ``mv_coder``. Each frame's stream is a BFrameBitstream
     whose ``rate_id`` packs n * 100000 + round(l * 1000).
 
-    ``device`` defaults to ``cuda``; the model moves there. Inputs are NHWC
-    float32 frames whose sides divide by 64.
+    Inputs are NHWC float32 frames whose sides divide by 64.
     """
 
     def __init__(self, model: BidirFlowRef, device=None):
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            set_deterministic(self.device)
-        self.model = model.to(self.device).eval()
-        self.flow_coder = GainedHyperpriorCoder(self.model.flow_compressor)
+        super().__init__(model, device)
+        self.mv_coder = self.flow_coder = GainedHyperpriorCoder(self.model.flow_compressor)
         self.res_coder = GainedHyperpriorCoder(self.model.residual_compressor)
-        self.shard = None  # see set_shard
-
-    def set_shard(self, shard) -> None:
-        """Shard level-batched coding over a mesh, as
-        :meth:`tpuvc_torch.models.lhbdc.LHBDCCoder.set_shard` describes."""
-        self.shard = shard
-
-    def _to(self, *xs):
-        return [x.to(self.device) for x in xs]
 
     @staticmethod
     def rate_id(n: int, l: float) -> int:
@@ -258,7 +242,12 @@ class FlexRateCoder:
     def parse_rate_id(rate_id: int) -> tuple[int, float]:
         return rate_id // 100000, (rate_id % 100000) / 1000.0
 
-    def _flow_front(self, context, xc, n, l):
+    _rate_of = parse_rate_id
+
+    def _context(self, x_before, x_after):
+        return self.model.process(x_before, x_after)
+
+    def _mv_front(self, xc, x_before, x_after, mv_before, mv_after, context, n, l):
         """Encoder-only: gained MV analysis of [context | current] + z
         quantization; the context comes from the decoder-shared ``process``."""
         y, z = self.model.flow_compressor.gained_analysis(torch.cat([context, xc], dim=-1), n, l)
@@ -269,115 +258,18 @@ class FlexRateCoder:
         y, z = self.model.residual_compressor.gained_analysis(xc - x_comp, n, l)
         return (y, *self.res_coder.quantize_z(z))
 
-    def _compensate(self, x_before, x_after, process, flow_hat):
-        mv_before, mv_after, _ = process
+    def _compensate(self, x_before, x_after, mv_before, mv_after, context, flow_hat):
         return self.model.compensate(x_before, x_after, mv_before + flow_hat[..., :2],
                                      mv_after + flow_hat[..., 2:4])
 
-    @staticmethod
-    def _bits(rate_id, mv_shape, res_shape, mv_strings, res_strings):
-        return BFrameBitstream(
-            rate_id=rate_id, mv_shape=tuple(mv_shape), res_shape=tuple(res_shape),
-            mv_y=mv_strings[0], mv_z=mv_strings[1],
-            res_y=res_strings[0], res_z=res_strings[1],
-        )
-
-    def encode(self, x_before, x_current, x_after, n: int, l: float = 1.0):
-        return self.encode_recon(x_before, x_current, x_after, n, l)[0]
-
-    @torch.no_grad()
     def encode_recon(self, x_before, x_current, x_after, n: int, l: float = 1.0):
         """Encode (the whole batch in one stream set) and return
-        (BFrameBitstream, decoder-identical reconstruction): both codecs
-        synthesise from their quantized latents, as the decoder does."""
-        x_before, x_current, x_after = self._to(x_before, x_current, x_after)
-        process = self.model.process(x_before, x_after)
-        mv = self.flow_coder.compress_from(*self._flow_front(process[2], x_current, n, l), n, l)
-        x_comp = self._predict_batch(x_before, x_after, mv["y_hat"], n, l, process=process)
-        res = self.res_coder.compress_from(*self._res_front(x_current, x_comp, n, l), n, l)
-        bits = self._bits(self.rate_id(n, l), mv["shape"], res["shape"],
-                          mv["strings"], res["strings"])
-        return bits, x_comp + self.res_coder.synthesize(res["y_hat"], n, l)
+        (BFrameBitstream, decoder-identical reconstruction)."""
+        return self._encode_recon(x_before, x_current, x_after, (n, l), self.rate_id(n, l))
 
-    def _predict_batch(self, x_before, x_after, flow_y_hat, n, l, process=None):
-        """Batched prediction shared by encoder and decoder; ``process``: the
-        encoder's own ``process`` output for the same references (the
-        decoder recomputes it with the same functions and shapes)."""
-        if process is None:
-            process = self.model.process(x_before, x_after)
-        flow_hat = self.flow_coder.synthesize(flow_y_hat, n, l)
-        return self._compensate(x_before, x_after, process, flow_hat)
-
-    @sharded_level_encode
-    @torch.no_grad()
     def encode_level_batch_async(self, x_before, x_current, x_after, n: int,
                                  l: float = 1.0):
-        """Batched real coding of one hierarchy level with deferred host
-        phases: the device work is issued now, and ``resolve()`` returns the
-        per-frame BFrameBitstreams when the workers finish. Returns
-        (resolve, x_hat (B, ...)), x_hat decoder-identical."""
-        x_before, x_current, x_after = self._to(x_before, x_current, x_after)
-        process = self.model.process(x_before, x_after)
-        mv = self.flow_coder.compress_batch_async(
-            *self._flow_front(process[2], x_current, n, l), n, l
-        )
-        x_comp = self._predict_batch(x_before, x_after, mv["y_hat"], n, l, process=process)
-        res = self.res_coder.compress_batch_async(*self._res_front(x_current, x_comp, n, l), n, l)
-        x_hat = x_comp + self.res_coder.synthesize(res["y_hat"], n, l)
-        rate_id, batch = self.rate_id(n, l), x_current.shape[0]
-        # Keep only futures and shapes: the y_hat tensors need not outlive
-        # this call.
-        mv_fut, res_fut = mv["strings_future"], res["strings_future"]
-        mv_shape, res_shape = mv["shape"], res["shape"]
-
-        def resolve():
-            mv_strings, res_strings = mv_fut.result(), res_fut.result()
-            return [self._bits(rate_id, mv_shape, res_shape, mv_strings[b], res_strings[b])
-                    for b in range(batch)]
-
-        return resolve, x_hat
-
-    def encode_level_batch(self, x_before, x_current, x_after, n: int, l: float = 1.0):
-        """Blocking variant: ([BFrameBitstream] * B, x_hat (B, ...))."""
-        resolve, x_hat = self.encode_level_batch_async(x_before, x_current, x_after, n, l)
-        return resolve(), x_hat
-
-    @sharded_level_decode_async
-    def decode_level_batch_async(self, bitstreams):
-        """Start one level's entropy decode now (host rANS and the gained
-        entropy parameters on workers; it needs no references) and return
-        ``resolve(x_before, x_after)``, which runs the reference-dependent
-        device tail (flow prediction, compensation, residual synthesis)."""
-        n, l = self.parse_rate_id(bitstreams[0].rate_id)
-        flow_f = self.flow_coder.decompress_batch_async(
-            [(b.mv_y, b.mv_z) for b in bitstreams], bitstreams[0].mv_shape, n, l
-        )
-        res_f = self.res_coder.decompress_batch_async(
-            [(b.res_y, b.res_z) for b in bitstreams], bitstreams[0].res_shape, n, l
-        )
-
-        @torch.no_grad()
-        def resolve(x_before, x_after):
-            x_before, x_after = self._to(x_before, x_after)
-            x_comp = self._predict_batch(x_before, x_after, flow_f.result(), n, l)
-            return x_comp + self.res_coder.synthesize(res_f.result(), n, l)
-
-        return resolve
-
-    def decode_level_batch(self, x_before, x_after, bitstreams):
-        """Blocking variant of decode_level_batch_async."""
-        return self.decode_level_batch_async(bitstreams)(x_before, x_after)
-
-    @torch.no_grad()
-    def decode(self, x_before, x_after, bitstream: BFrameBitstream):
-        """Inverse of encode (one stream set for the batch)."""
-        x_before, x_after = self._to(x_before, x_after)
-        batch = x_before.shape[0]
-        n, l = self.parse_rate_id(bitstream.rate_id)
-        process = self.model.process(x_before, x_after)
-        flow_hat = self.flow_coder.decompress([bitstream.mv_y, bitstream.mv_z],
-                                              bitstream.mv_shape, n, l, batch=batch)
-        x_comp = self._compensate(x_before, x_after, process, flow_hat)
-        res_hat = self.res_coder.decompress([bitstream.res_y, bitstream.res_z],
-                                            bitstream.res_shape, n, l, batch=batch)
-        return x_comp + res_hat
+        """:meth:`HyperpriorPairCoder._encode_level_batch_async` at (n, l):
+        (resolve, x_hat (B, ...))."""
+        return self._encode_level_batch_async(x_before, x_current, x_after, (n, l),
+                                              self.rate_id(n, l))

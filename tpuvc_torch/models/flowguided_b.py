@@ -22,19 +22,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpuvc_torch import obs, resolve_device
+from tpuvc_torch import obs
 from tpuvc_torch.coder.container import VFrameBitstream
-from tpuvc_torch.coder.parallel import run_steps
 from tpuvc_torch.entropy.emath import likelihood_to_bits, per_sample_bits
-from tpuvc_torch.models.cond_elic import CondELICCoder, OffsetELIC, ResELIC
+from tpuvc_torch.models.bframe_coder import CondPairCoder
+from tpuvc_torch.models.cond_elic import OffsetELIC, ResELIC
 from tpuvc_torch.models.layers import init_weights
 from tpuvc_torch.models.ms_feature import FlowNET, MSFeature, Reconstructor, TemporalEnc
 from tpuvc_torch.models.offset_diversity import OffsetDiversity
 from tpuvc_torch.ops.pad import pad_to_multiple, unpad
-from tpuvc_torch.ops.precision import set_deterministic
 from tpuvc_torch.ops.resample import avg_pool2d, bilinear_resize
 from tpuvc_torch.ops.warp import warp
-from tpuvc_torch.parallel.mesh import sharded_level_decode, sharded_level_encode
 
 
 def convert_scales(scale1, scale2):
@@ -200,39 +198,17 @@ class FlowGuidedB(nn.Module):
         return self.offset_compressor.aux_loss() + self.residual_compressor.aux_loss()
 
 
-class FlowGuidedBCoder:
-    """Real-bitstream encode/decode for the v4 codec.
+class FlowGuidedBCoder(CondPairCoder):
+    """Real-bitstream encode/decode for the v4 codec
+    (:class:`~tpuvc_torch.models.bframe_coder.CondPairCoder`).
 
     The decoder recomputes flow, features, warps and temporal priors from
-    the reconstructed references, and both conditional bottlenecks code
-    through CondELICCoder. Encoder and decoder must compute these alike:
-    both run the same functions at the same batch shapes under the same
-    dtype policy, and the constructor switches CUDA to deterministic kernels
-    (:func:`set_deterministic`; the deform and warp kernels use no atomics).
+    the reconstructed references (the deform and warp kernels use no
+    atomics). The temporal geometry is (scale1, scale2, down_ratio), in
+    each stream's header.
 
-    ``device`` defaults to ``cuda``; the model moves there. Inputs are NHWC
-    float32 frames whose sides divide by 16.
+    Inputs are NHWC float32 frames whose sides divide by 16.
     """
-
-    def __init__(self, model: FlowGuidedB, device=None):
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            set_deterministic(self.device)
-        self.model = model.to(self.device).eval()
-        self.offset_coder = CondELICCoder(self.model.offset_compressor)
-        self.res_coder = CondELICCoder(self.model.residual_compressor)
-        self.shard = None  # see set_shard
-
-    def set_shard(self, shard) -> None:
-        """Shard level-batched coding over a mesh, as
-        :meth:`tpuvc_torch.models.lhbdc.LHBDCCoder.set_shard` describes."""
-        self.shard = shard
-
-    def _to(self, *xs):
-        return [x.to(self.device) for x in xs]
-
-    def _streams_split(self):
-        return 1 + 2 * len(self.model.groups)
 
     @staticmethod
     def _header(s, scale1, scale2, down_ratio, z_shape, streams):
@@ -245,140 +221,25 @@ class FlowGuidedBCoder:
             streams=list(streams),
         )
 
-    def _front(self, xref1, xref2, xcur, scale1, scale2, down_ratio):
-        m = self.model
-        cond, offset_temp, flows, fref1, fref2 = m.decoder_context(
+    @staticmethod
+    def _geometry(bitstream):
+        return (bitstream.scale1_centi / 100.0, bitstream.scale2_centi / 100.0,
+                int(bitstream.down_ratio))
+
+    def _context(self, xref1, xref2, scale1, scale2, down_ratio):
+        cond, offset_temp, flows, fref1, fref2 = self.model.decoder_context(
             xref1, xref2, scale1, scale2, down_ratio
         )
-        fcur = m.features(xcur)
-        inputs = tuple(torch.cat([c, f], dim=-1) for c, f in zip(cond, fcur))
-        return cond, offset_temp, flows, fref1, fref2, fcur, inputs
+        return cond, offset_temp, (fref1, fref2, flows)
 
-    def _res_inputs(self, fcur, x_comp):
-        return tuple(torch.cat([f, xc], dim=-1) for f, xc in zip(fcur, x_comp))
-
-    def _recon(self, x_comp, residues):
-        return self.model.reconstruct(*(xc + r for xc, r in zip(x_comp, residues)))
-
-    def encode(self, xref1, xref2, xcur, s, scale1, scale2, down_ratio: int = 1):
-        return self.encode_recon(xref1, xref2, xcur, s, scale1, scale2, down_ratio)[0]
-
-    @torch.no_grad()
-    def encode_recon(self, xref1, xref2, xcur, s, scale1, scale2,
-                     down_ratio: int = 1):
+    def encode_recon(self, xref1, xref2, xcur, s, scale1, scale2, down_ratio: int = 1):
         """Encode (the whole batch in one stream set) and return
-        (VFrameBitstream, decoder-identical reconstruction): both
-        bottlenecks synthesise from their quantized latents, so neither
-        stream is decoded again."""
-        xref1, xref2, xcur = self._to(xref1, xref2, xcur)
-        m = self.model
-        cond, offset_temp, flows, fref1, fref2, fcur, inputs = self._front(
-            xref1, xref2, xcur, scale1, scale2, down_ratio
-        )
-        off = self.offset_coder.compress(inputs, cond, offset_temp, s)
-        x_comp = m.fuse_offsets(off["outs"], fref1, fref2, flows)
-        res = self.res_coder.compress(self._res_inputs(fcur, x_comp), x_comp,
-                                      m.residual_cond(x_comp), s)
-        assert off["z_shape"] == res["z_shape"]
-        bits = self._header(s, scale1, scale2, down_ratio, off["z_shape"],
-                            off["streams"] + res["streams"])
-        return bits, self._recon(x_comp, res["outs"])
+        (VFrameBitstream, decoder-identical reconstruction)."""
+        return self._encode_recon(xref1, xref2, xcur, s, (scale1, scale2, down_ratio))
 
-    @sharded_level_encode
-    @torch.no_grad()
     def encode_level_batch_async(self, xref1, xref2, xcur, s, scale1, scale2,
                                  down_ratio: int = 1):
-        """Batched real coding of one hierarchy level with deferred host
-        phases: the device work is issued now, and ``resolve()`` returns the
-        per-frame VFrameBitstreams when the workers finish. Frames of one
-        level share their temporal geometry, so one (scale1, scale2,
-        down_ratio) serves the batch. Returns (resolve, x_hat (B, ...))."""
-        xref1, xref2, xcur = self._to(xref1, xref2, xcur)
-        m = self.model
-        cond, offset_temp, flows, fref1, fref2, fcur, inputs = self._front(
-            xref1, xref2, xcur, scale1, scale2, down_ratio
-        )
-        off = self.offset_coder.compress_batch_async(inputs, cond, offset_temp, s)
-        x_comp = m.fuse_offsets(off["outs"], fref1, fref2, flows)
-        res = self.res_coder.compress_batch_async(
-            self._res_inputs(fcur, x_comp), x_comp, m.residual_cond(x_comp), s
-        )
-        assert off["z_shape"] == res["z_shape"]
-        x_hat = self._recon(x_comp, res["outs"])
-        # Keep only the resolvers and metadata: the device tensors of this
-        # chunk need not outlive the call.
-        off_resolve, res_resolve = off["streams_resolve"], res["streams_resolve"]
-        z_shape, batch = off["z_shape"], xcur.shape[0]
-
-        def resolve():
-            off_streams, res_streams = off_resolve(), res_resolve()
-            return [
-                self._header(s, scale1, scale2, down_ratio, z_shape,
-                             off_streams[b] + res_streams[b])
-                for b in range(batch)
-            ]
-
-        return resolve, x_hat
-
-    def encode_level_batch(self, xref1, xref2, xcur, s, scale1, scale2,
-                           down_ratio: int = 1):
-        """Blocking variant: ([VFrameBitstream] * B, x_hat (B, ...))."""
-        resolve, x_hat = self.encode_level_batch_async(
-            xref1, xref2, xcur, s, scale1, scale2, down_ratio
-        )
-        return resolve(), x_hat
-
-    @torch.no_grad()
-    def decode_level_batch_steps(self, xref1, xref2, bitstreams):
-        """decode_level_batch stepwise: a generator that issues the chunk's
-        device work on the calling thread and yields at each host round
-        trip of the two bottlenecks' entropy decode (a z and two phases a
-        group each), -> x_hat (B, ...). ``coder.parallel.run_steps`` drives
-        one to its end, or two chunks of one level in turn, so that one's
-        rANS runs while the other's device work does."""
-        xref1, xref2 = self._to(xref1, xref2)
-        m = self.model
-        b0 = bitstreams[0]
-        s = b0.s_milli / 1000.0
-        scale1, scale2 = b0.scale1_centi / 100.0, b0.scale2_centi / 100.0
-        n = self._streams_split()
-        cond, offset_temp, flows, fref1, fref2 = m.decoder_context(
-            xref1, xref2, scale1, scale2, int(b0.down_ratio)
-        )
-        heads = yield from self.offset_coder.decompress_batch_steps(
-            [list(b.streams[:n]) for b in bitstreams], b0.z_shape, cond, offset_temp, s
-        )
-        x_comp = m.fuse_offsets(heads, fref1, fref2, flows)
-        residues = yield from self.res_coder.decompress_batch_steps(
-            [list(b.streams[n:]) for b in bitstreams], b0.z_shape, x_comp,
-            m.residual_cond(x_comp), s,
-        )
-        return self._recon(x_comp, residues)
-
-    @sharded_level_decode
-    def decode_level_batch(self, xref1, xref2, bitstreams):
-        """Inverse of encode_level_batch (the encoder's batch shapes)."""
-        return run_steps(self.decode_level_batch_steps(xref1, xref2, bitstreams))[0]
-
-    @torch.no_grad()
-    def decode(self, xref1, xref2, bitstream: VFrameBitstream):
-        """Inverse of encode (one stream set for the batch)."""
-        xref1, xref2 = self._to(xref1, xref2)
-        m = self.model
-        batch = xref1.shape[0]
-        s = bitstream.s_milli / 1000.0
-        scale1 = bitstream.scale1_centi / 100.0
-        scale2 = bitstream.scale2_centi / 100.0
-        n = self._streams_split()
-        cond, offset_temp, flows, fref1, fref2 = m.decoder_context(
-            xref1, xref2, scale1, scale2, int(bitstream.down_ratio)
-        )
-        heads = self.offset_coder.decompress(
-            bitstream.streams[:n], bitstream.z_shape, cond, offset_temp, s, batch
-        )
-        x_comp = m.fuse_offsets(heads, fref1, fref2, flows)
-        residues = self.res_coder.decompress(
-            bitstream.streams[n:], bitstream.z_shape, x_comp,
-            m.residual_cond(x_comp), s, batch,
-        )
-        return self._recon(x_comp, residues)
+        """:meth:`CondPairCoder._encode_level_batch_async`, one (scale1,
+        scale2, down_ratio) for the level: (resolve, x_hat (B, ...))."""
+        return self._encode_level_batch_async(xref1, xref2, xcur, s,
+                                              (scale1, scale2, down_ratio))

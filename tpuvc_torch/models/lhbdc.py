@@ -20,9 +20,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tpuvc_torch import obs, resolve_device
-from tpuvc_torch.coder.container import BFrameBitstream
+from tpuvc_torch import obs
 from tpuvc_torch.entropy.emath import likelihood_to_bits, per_sample_bits
+from tpuvc_torch.models.bframe_coder import HyperpriorPairCoder
 from tpuvc_torch.models.hyperprior import (
     HyperpriorCoder,
     MVCompressor,
@@ -32,10 +32,8 @@ from tpuvc_torch.models.layers import init_weights
 from tpuvc_torch.models.spynet import SPyNet
 from tpuvc_torch.models.unet import MaskUNet
 from tpuvc_torch.ops.pad import pad_to_multiple, unpad
-from tpuvc_torch.ops.precision import set_deterministic
 from tpuvc_torch.ops.resample import avg_pool2d, upsample_flow
 from tpuvc_torch.ops.warp import warp
-from tpuvc_torch.parallel.mesh import sharded_level_decode_async, sharded_level_encode
 
 
 class LHBDC(nn.Module):
@@ -143,51 +141,29 @@ class LHBDC(nn.Module):
         return self.mv_compressor.aux_loss() + self.residual_compressor.aux_loss()
 
 
-class LHBDCCoder:
-    """Real-bitstream encode/decode for the LHBDC codec.
+class LHBDCCoder(HyperpriorPairCoder):
+    """Real-bitstream encode/decode for the LHBDC codec
+    (:class:`~tpuvc_torch.models.bframe_coder.HyperpriorPairCoder`).
 
     The decoder re-estimates flow from the two *reconstructed* references,
     so encoder and decoder must compute bit-identical flows and entropy
-    parameters: both run the same functions at the same batch shapes under
-    the same dtype policy, and the constructor switches CUDA to
-    deterministic kernels (:func:`set_deterministic`). The encoder rebuilds
-    its prediction from the *decoded* latents, so drift is impossible.
+    parameters. The encoder rebuilds its prediction from the *decoded*
+    latents, so drift is impossible. ``rate_id`` names the weights' lambda:
+    each stream records it, and no coding step reads it.
 
-    ``device`` defaults to ``cuda``; the model moves there. Inputs are NHWC
-    float32 frames padded to x64.
+    Inputs are NHWC float32 frames padded to x64.
     """
 
     def __init__(self, model: LHBDC, device=None):
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            set_deterministic(self.device)
-        self.model = model.to(self.device).eval()
+        super().__init__(model, device)
         self.mv_coder = HyperpriorCoder(self.model.mv_compressor)
         self.res_coder = HyperpriorCoder(self.model.residual_compressor)
-        self.shard = None  # see set_shard
 
-    def set_shard(self, shard) -> None:
-        """Shard level-batched coding over a mesh: ``shard`` from
-        tpuvc_torch.parallel.mesh.level_batch_sharder, or None to code on
-        this device alone.
+    @staticmethod
+    def _rate_of(rate_id):
+        return ()
 
-        tpuvc applies its sharder at the inputs of every device stage, its
-        sub-coders' included, and XLA keeps each array logically whole. In
-        the port each rank is a process of its own, so the split is coarser:
-        the level-batch entry points take this rank's rows on entry, code
-        them end to end (every sub-coder stage sees the smaller batch, and
-        needs no hook of its own), and gather the reconstructions (and, on
-        the encoder, the per-frame streams) on exit; a level the mesh size
-        does not divide is coded whole on every rank. The rule depends only
-        on (batch, mesh size), so a decoder over a mesh of the same size
-        (``VSequenceBitstream.mesh``) runs the encoder's batch shapes and
-        reproduces its floats."""
-        self.shard = shard
-
-    def _to(self, *xs):
-        return [x.to(self.device) for x in xs]
-
-    def _motion_priors(self, x_before, x_after):
+    def _context(self, x_before, x_after):
         return self.model.motion_priors(x_before, x_after)[:2]
 
     def _mv_front(self, x_current, x_before, x_after, flow_ba, flow_ab):
@@ -209,133 +185,12 @@ class LHBDCCoder:
             x_before, x_after, flow_cb_hat + flow_ab, flow_ca_hat + flow_ba, size
         )
 
-    @torch.no_grad()
-    def encode(self, x_before, x_current, x_after, rate_id: int = 0):
-        return self.encode_recon(x_before, x_current, x_after, rate_id)[0]
-
-    @torch.no_grad()
     def encode_recon(self, x_before, x_current, x_after, rate_id: int = 0):
         """Encode one frame (the whole batch in one stream set) and return
         (BFrameBitstream, decoder-identical reconstruction)."""
-        x_before, x_current, x_after = self._to(x_before, x_current, x_after)
-        flow_ba, flow_ab = self._motion_priors(x_before, x_after)
-        mv = self.mv_coder.compress_from(
-            *self._mv_front(x_current, x_before, x_after, flow_ba, flow_ab)
-        )
-        # The decoder's path: MV synthesis from the decoded latent.
-        flow_hat = self.mv_coder.synthesize(mv["y_hat"])
-        x_pred = self._compensate(x_before, x_after, flow_ba, flow_ab, flow_hat)
-        res = self.res_coder.compress_from(*self._res_front(x_current, x_pred))
-        bits = BFrameBitstream(
-            rate_id=rate_id,
-            mv_shape=tuple(mv["shape"]),
-            res_shape=tuple(res["shape"]),
-            mv_y=mv["strings"][0],
-            mv_z=mv["strings"][1],
-            res_y=res["strings"][0],
-            res_z=res["strings"][1],
-        )
-        return bits, x_pred + self.res_coder.synthesize(res["y_hat"])
+        return self._encode_recon(x_before, x_current, x_after, (), rate_id)
 
-    @torch.no_grad()
-    def decode(self, x_before, x_after, bitstream: BFrameBitstream) -> torch.Tensor:
-        x_before, x_after = self._to(x_before, x_after)
-        batch = x_before.shape[0]
-        flow_ba, flow_ab = self._motion_priors(x_before, x_after)
-        flow_hat = self.mv_coder.decompress(
-            [bitstream.mv_y, bitstream.mv_z], bitstream.mv_shape, batch=batch
-        )
-        x_pred = self._compensate(x_before, x_after, flow_ba, flow_ab, flow_hat)
-        res_hat = self.res_coder.decompress(
-            [bitstream.res_y, bitstream.res_z], bitstream.res_shape, batch=batch
-        )
-        return x_pred + res_hat
-
-    def _predict_batch(self, x_before, x_after, mv_y_hat, flows=None):
-        """Shared enc/dec batched prediction from refs + quantized MV latent.
-        ``flows``: the encoder's own ``_motion_priors`` output for the same
-        refs; the decoder recomputes it with the same functions and shapes,
-        which gives the same values."""
-        flow_ba, flow_ab = (
-            flows if flows is not None else self._motion_priors(x_before, x_after)
-        )
-        flow_hat = self.mv_coder.synthesize(mv_y_hat)
-        return self._compensate(x_before, x_after, flow_ba, flow_ab, flow_hat)
-
-    @sharded_level_encode
-    @torch.no_grad()
-    def encode_level_batch_async(self, x_before, x_current, x_after,
-                                 rate_id: int = 0):
-        """Batched real-bitstream coding of one hierarchy level, host phases
-        overlapped: the device work is issued now, and ``resolve()``
-        returns the per-frame BFrameBitstreams when the workers finish.
-        The caller can issue the NEXT level's device work (which needs only
-        x_hat) meanwhile. Returns (resolve, x_hat (B, ...)), x_hat
-        decoder-identical."""
-        x_before, x_current, x_after = self._to(x_before, x_current, x_after)
-        flow_ba, flow_ab = self._motion_priors(x_before, x_after)
-        mv = self.mv_coder.compress_batch_async(
-            *self._mv_front(x_current, x_before, x_after, flow_ba, flow_ab)
-        )
-        x_pred = self._predict_batch(
-            x_before, x_after, mv["y_hat"], flows=(flow_ba, flow_ab)
-        )
-        res = self.res_coder.compress_batch_async(*self._res_front(x_current, x_pred))
-        x_hat = x_pred + self.res_coder.synthesize(res["y_hat"])
-        batch = x_current.shape[0]
-        # Keep only futures and shapes: the y_hat tensors need not outlive
-        # this call.
-        mv_fut, res_fut = mv["strings_future"], res["strings_future"]
-        mv_shape, res_shape = tuple(mv["shape"]), tuple(res["shape"])
-
-        def resolve():
-            mv_strings = mv_fut.result()
-            res_strings = res_fut.result()
-            return [
-                BFrameBitstream(
-                    rate_id=rate_id,
-                    mv_shape=mv_shape,
-                    res_shape=res_shape,
-                    mv_y=mv_strings[b][0],
-                    mv_z=mv_strings[b][1],
-                    res_y=res_strings[b][0],
-                    res_z=res_strings[b][1],
-                )
-                for b in range(batch)
-            ]
-
-        return resolve, x_hat
-
-    def encode_level_batch(self, x_before, x_current, x_after, rate_id: int = 0):
-        """Blocking variant: ([BFrameBitstream] * B, x_hat (B, ...))."""
-        resolve, x_hat = self.encode_level_batch_async(
-            x_before, x_current, x_after, rate_id
-        )
-        return resolve(), x_hat
-
-    @sharded_level_decode_async
-    def decode_level_batch_async(self, bitstreams):
-        """Start one level's entropy decode now (host rANS + entropy
-        parameters on workers; it needs no references) and return
-        ``resolve(x_before, x_after)``, which runs the reference-dependent
-        device tail (flow re-estimation, compensation, residual synthesis).
-        A decoder submits every level's streams ahead, then walks the
-        hierarchy calling resolve as reconstructions become available."""
-        mv_f = self.mv_coder.decompress_batch_async(
-            [(b.mv_y, b.mv_z) for b in bitstreams], bitstreams[0].mv_shape
-        )
-        res_f = self.res_coder.decompress_batch_async(
-            [(b.res_y, b.res_z) for b in bitstreams], bitstreams[0].res_shape
-        )
-
-        @torch.no_grad()
-        def resolve(x_before, x_after):
-            x_before, x_after = self._to(x_before, x_after)
-            x_pred = self._predict_batch(x_before, x_after, mv_f.result())
-            return x_pred + self.res_coder.synthesize(res_f.result())
-
-        return resolve
-
-    def decode_level_batch(self, x_before, x_after, bitstreams):
-        """Blocking variant of decode_level_batch_async."""
-        return self.decode_level_batch_async(bitstreams)(x_before, x_after)
+    def encode_level_batch_async(self, x_before, x_current, x_after, rate_id: int = 0):
+        """:meth:`HyperpriorPairCoder._encode_level_batch_async`: (resolve,
+        x_hat (B, ...))."""
+        return self._encode_level_batch_async(x_before, x_current, x_after, (), rate_id)
